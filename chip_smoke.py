@@ -19,11 +19,27 @@ script exits non-zero and prints no result:
           host MSM, msm_device_v3_rows at R = 4, n = 4096; exact.  Times
           with CUDA events, and one chunk of the plain pipeline on the
           card (a check of the algorithm, no yardstick of speed)
-  e2e     `cli dna --e2e` in-process with REEF_DEVICE_MSM=1 on the 1 MB
-          document of the reference's dna.sh workload (seed 42); must
-          prove and verify, and both kernels must have launched.  The
-          device MSMs are timed; then the same run is timed again in the
-          warm process, with REEF_DEVICE_MSM=0 (host MSMs) and =1
+  poseidon  K5 (csrc/poseidon.cu) at t = 5, B = 2^19 (the 1 MB document's
+          Merkle leaves) against its plain version on a 4,096-state
+          sample plus the last state, and at t = 9, B = 1 (a sumcheck
+          round's sponge) and B = 37 on both fields; exact, and a few
+          states against the python host permutation
+  sumcheck  a full device nlookup_prove on a 2^16 table against the host
+          route (exact transcript); K6 (csrc/sumcheck.cu: coefficients,
+          fold, eq step) against the plain versions at half = 2^19
+  merkle  build_tree_device of the 1 MB DNA document (2^19 leaves, one K5
+          launch per level), timed; a 64 Ki-entry document's root equal
+          to the host MerkleCommitment
+  step    the flagship device_step at B = 2^19, half = 2^19 against the
+          plain versions
+  e2e     `cli dna --e2e` in-process with REEF_DEVICE_MSM=1 and
+          REEF_DEVICE_SUMCHECK=auto on the 1 MB document of the
+          reference's dna.sh workload (seed 42); must prove and verify,
+          and every kernel must have launched (the 2^20-entry document
+          sumcheck runs on the card: K5 once a round).  The device MSMs
+          and the device sumcheck are timed; then the same run is timed
+          again in the warm process, with both routes on the host
+          (REEF_DEVICE_MSM=0, REEF_DEVICE_SUMCHECK=0) and on the card
 
 Then the kernel table as one JSON line, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}.  Needs torch with
@@ -51,6 +67,15 @@ MULS_PER_PADD, MULS_PER_AFFINE_ADD = 14, 10
 # a Montgomery product (csrc/field.cuh): 8 CIOS rounds of two 8-limb
 # multiply-add chains (lo and hi halves: 32 mads) plus one m = t0*n0
 MADS_PER_MUL = 8 * (2 * 2 * 8 + 1)
+R_F, R_P = 8, {5: 56, 9: 57}    # Poseidon full and partial rounds
+
+
+def poseidon_muls(t: int) -> int:
+    """Montgomery products of one permutation: the S-box (3 products) on
+    every lane of the R_F full rounds and on lane 0 of the partial rounds,
+    and t^2 products of the MDS mix in every round."""
+    return R_F * (3 * t + t * t) + R_P[t] * (3 + t * t)
+
 
 DNA_MOTIF = "ATGGGCTACAGAAACCGTGCCAAA"
 # the shapes of each phase (module constants, so a rehearsal on the CPU
@@ -60,6 +85,12 @@ TREE_CAP = 16384
 MSM_N = 1 << 16
 ROWS, ROW_N = 4, 4096
 DNA_BYTES = 1_000_000
+POSEIDON_B = 1 << 19
+SAMPLE = 4096
+SUMCHECK_N = 1 << 16
+KERNEL_HALF = 1 << 19
+MERKLE_CHECK_N = 1 << 16
+STEP_B, STEP_HALF = 1 << 19, 1 << 19
 
 
 def emit(phase: str, t0: float, **kw) -> None:
@@ -107,6 +138,218 @@ def points_of(ck, gens, device, torch):
     """(n, 3, 8) projective host points -> (3, 8, n) int32 on device."""
     return torch.from_numpy(ck.to_proj(gens)).permute(1, 2, 0) \
         .contiguous().to(device)
+
+
+def max_err(a, b) -> int:
+    """Largest absolute difference of two int32 limb tensors."""
+    return int((a.long() - b.long()).abs().max())
+
+
+def dna_text(size: int) -> str:
+    """The reference's dna.sh document of `size` bytes (seed 42): random
+    ACGT, then the motif."""
+    body = "".join(random.Random(42).choice("ACGT")
+                   for _ in range(size - len(DNA_MOTIF)))
+    return body + DNA_MOTIF
+
+
+def sample_idx(torch, B: int, g, dev):
+    """SAMPLE - 1 random lanes of B, then the last lane."""
+    return torch.cat([torch.randperm(B, generator=g)[:SAMPLE - 1],
+                      torch.tensor([B - 1])]).to(dev)
+
+
+def phase_poseidon(torch, dev) -> dict:
+    """K5 against its plain version; returns its kernel-table row."""
+    from reef_tpu_torch.models.prover_step import random_elems
+    from reef_tpu_torch.ops import limb, poseidon_device
+    from reef_tpu_torch.ops.poseidon_constants import host_permutation
+    permute, plain = poseidon_device.permute, poseidon_device.permute_plain
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cpu").manual_seed(5)
+
+    def states(t, B):
+        return random_elems((t, B), g, dev).permute(1, 0, 2).contiguous()
+
+    def host_check(lf, X, Y, lanes):
+        for b in lanes:
+            s = [lf.decode32(X[l, :, b:b + 1])[0] for l in range(X.shape[0])]
+            out = [lf.decode32(Y[l, :, b:b + 1])[0] for l in range(X.shape[0])]
+            require(out == host_permutation(lf.p_int, s),
+                    f"poseidon {lf.name}: state {b} != host permutation")
+
+    lf = limb.FQ
+    B = POSEIDON_B
+    X = states(5, B)
+    idx = sample_idx(torch, B, g, dev)
+    got = permute(lf, X)
+    Xs = X[:, :, idx].contiguous()
+    err = max_err(got[:, :, idx], plain(lf, Xs))
+    require(err == 0, f"poseidon t=5: kernel != plain (max {err})")
+    host_check(lf, X, got, (0, B - 1))
+    ms5 = cuda_ms(torch, lambda: permute(lf, X), reps=5)
+    plain5 = cuda_ms(torch, lambda: plain(lf, Xs), reps=1)
+    errs = [err]
+    for f in (limb.FQ, limb.FP):
+        for Bs in (1, 37):
+            Y = states(9, Bs)
+            got = permute(f, Y)
+            errs.append(max_err(got, plain(f, Y)))
+            require(errs[-1] == 0, f"poseidon t=9 {f.name} B={Bs}: "
+                    f"kernel != plain (max {errs[-1]})")
+            host_check(f, Y, got, (0,))
+        Y = states(5, 37)
+        errs.append(max_err(permute(f, Y), plain(f, Y)))
+        require(errs[-1] == 0, f"poseidon t=5 {f.name} B=37: kernel != plain")
+    Y1 = states(9, 1)
+    ms9 = cuda_ms(torch, lambda: permute(lf, Y1), reps=20)
+    plain9 = cuda_ms(torch, lambda: plain(lf, Y1), reps=1)
+    bms5, by5 = bound_ms(2 * 5 * 32 * B, B * poseidon_muls(5) * MADS_PER_MUL)
+    bms9, by9 = bound_ms(2 * 9 * 32, poseidon_muls(9) * MADS_PER_MUL)
+    emit("poseidon", t0, t5_states=B, t5_ms=ms5, t5_bound_ms=bms5,
+         t5_plain_ms_on_sample=plain5, sample=SAMPLE, t9_b1_ms=ms9,
+         t9_b1_bound_ms=bms9, t9_b1_plain_ms=plain9,
+         t5_states_per_s=B / ms5 * 1e3)
+    return {
+        "name": "poseidon", "route": "cuda",
+        "source": "reef_tpu_torch/csrc/poseidon.cu",
+        "replaces": "reef_tpu/ops/poseidon_pallas.py:185",
+        "max_abs_err": max(errs), "ms": ms9, "plain_ms": plain9,
+        "bound_ms": bms9, "bound_by": by9, "library_ms": None,
+        "shape": "(9, 8, 1) int32, Fq: a sumcheck round's sponge",
+        "t5_b2e19_ms": ms5, "t5_b2e19_bound_ms": bms5,
+        "t5_b2e19_bound_by": by5, "t5_plain_ms_on_4096": plain5}
+
+
+def phase_sumcheck(torch, dev, rnd) -> dict:
+    """A device nlookup_prove against the host route, and K6 against its
+    plain versions; returns the three kernel-table rows."""
+    from reef_tpu_torch.backend import sumcheck as SC
+    from reef_tpu_torch.models.prover_step import random_elems
+    from reef_tpu_torch.ops import field as F
+    from reef_tpu_torch.ops import limb
+    from reef_tpu_torch.ops import sumcheck_kernel as K
+    from reef_tpu_torch.ops.sumcheck_device import DeviceTableCache
+    t0 = time.perf_counter()
+    f, lf, n = F.FQ, limb.FQ, SUMCHECK_N
+    table = [rnd.randrange(4) for _ in range(n)]
+    qs = [rnd.randrange(n) for _ in range(64)]
+    qs[5] = qs[2]
+    vs = [table[q] for q in qs]
+    ell = n.bit_length() - 1
+    prev_q = [rnd.randrange(f.p) for _ in range(ell)]
+    prev_v = SC.verifier_mle_eval(f, table, prev_q)
+    args = (f, table, qs, vs, prev_q, prev_v, "nldoc", 12345)
+    t1 = time.perf_counter()
+    host = SC.nlookup_prove(*args)
+    host_s = time.perf_counter() - t1
+    cache = DeviceTableCache(lf, table, device=dev)
+    secs = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        got = SC.nlookup_prove(*args, device_cache=cache)  # ends in a copy
+        secs.append(time.perf_counter() - t1)
+        require(got == host, "sumcheck: device transcript != host route")
+
+    g = torch.Generator(device="cpu").manual_seed(6)
+    half = KERNEL_HALF
+    T = random_elems((2 * half,), g, dev)
+    E = random_elems((2 * half,), g, dev)
+    st = random_elems((9,), g, dev).T.reshape(9, limb.N32, 1).contiguous()
+    r = random_elems((1,), g, dev)
+    hv = (T[:, :half], T[:, half:], E[:, :half], E[:, half:])
+    term = T[:, :half].contiguous()
+    runs = {
+        "sumcheck_coeffs": (lambda: K.coeffs(lf, *hv, st),
+                            lambda: K.coeffs_plain(lf, *hv, st),
+                            4 * half * 32, 4 * half),
+        "sumcheck_fold": (lambda: K.fold(lf, *hv, r),
+                          lambda: K.fold_plain(lf, *hv, r),
+                          6 * half * 32, 2 * half),
+        "sumcheck_eq": (lambda: (K.eq_step(lf, term, r, E),),
+                        lambda: (K.eq_step_plain(lf, term, r, E),),
+                        5 * half * 32, 2 * half),
+    }
+    rows, res = {}, {}
+    for name, (kern, pl, nbytes, muls) in runs.items():
+        got, want = kern(), pl()
+        torch.cuda.synchronize()
+        err = max(max_err(a, b) for a, b in zip(got, want))
+        require(err == 0, f"{name}: kernel != plain (max {err})")
+        ms = cuda_ms(torch, kern, reps=10)
+        plain_ms = cuda_ms(torch, pl, reps=1)
+        bms, by = bound_ms(nbytes, muls * MADS_PER_MUL)
+        res[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms}
+        rows[name] = {
+            "name": name, "route": "cuda",
+            "source": "reef_tpu_torch/csrc/sumcheck.cu",
+            "replaces": ("reef_tpu/ops/sumcheck_device.py:87 (XLA, not a "
+                         "pallas_call)" if name == "sumcheck_eq" else
+                         "reef_tpu/ops/sumcheck_device.py:43 (XLA, not a "
+                         "pallas_call)"),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "shape": f"(8, {2 * half}) int32 tables, half = {half}"}
+    emit("sumcheck", t0, table=n, rounds=ell, host_route_s=host_s,
+         device_route_s=secs, half=half, **res)
+    return rows
+
+
+def phase_merkle(torch, dev) -> None:
+    """The 1 MB DNA document's tree on the card, and a 64 Ki-entry
+    document's root against the host MerkleCommitment."""
+    from reef_tpu_torch.backend.merkle import (MerkleCommitment,
+                                               build_tree_device)
+    from reef_tpu_torch.backend.table import doc_transform
+    from reef_tpu_torch.utils import cudabuild
+    t0 = time.perf_counter()
+    ab = [ord(c) for c in "ACGT"]
+    udoc = doc_transform(ab, [ord(c) for c in dna_text(DNA_BYTES)])
+    before = cudabuild.launch_counts()["poseidon"]
+    secs, roots = [], []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        roots.append(build_tree_device(udoc, dev))   # ends in a copy
+        secs.append(time.perf_counter() - t1)
+    launches = (cudabuild.launch_counts()["poseidon"] - before) // 2
+    levels = (len(udoc) // 2 - 1).bit_length() + 1
+    require(roots[0] == roots[1], "merkle: two builds differ")
+    require(launches == levels, f"merkle: {launches} K5 launches for "
+            f"{levels} levels")
+    small = doc_transform(ab, [ord(c) for c in dna_text(MERKLE_CHECK_N - 2)])
+    t1 = time.perf_counter()
+    want = MerkleCommitment(small).commitment
+    host_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    got = build_tree_device(small, dev)
+    dev_s = time.perf_counter() - t1
+    require(got == want, "merkle: device root != host MerkleCommitment")
+    emit("merkle", t0, doc_bytes=DNA_BYTES, udoc=len(udoc),
+         leaves=len(udoc) // 2, k5_launches=launches, build_s=secs,
+         check_udoc=len(small), check_host_s=host_s, check_device_s=dev_s)
+
+
+def phase_step(torch, dev) -> None:
+    """The flagship step against the plain versions."""
+    from reef_tpu_torch.models import prover_step as PS
+    from reef_tpu_torch.ops import limb, poseidon_device
+    from reef_tpu_torch.ops import sumcheck_kernel as K
+    t0 = time.perf_counter()
+    lf = limb.FQ
+    states, t_tab, eq_tab, r = PS.example_args(STEP_B, STEP_HALF, seed=1,
+                                               device=dev)
+    out = PS.device_step(states, t_tab, eq_tab, r)
+    idx = sample_idx(torch, STEP_B, torch.Generator().manual_seed(8), dev)
+    hv = (t_tab[0], t_tab[1], eq_tab[0], eq_tab[1])
+    g, _ = K.coeffs_plain(lf, *hv)
+    want = [poseidon_device.permute_plain(lf, states[:, :, idx].contiguous()),
+            *K.fold_plain(lf, *hv, r), g[0], g[1], g[2]]
+    got = [out[0][:, :, idx], *out[1:]]
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    require(err == 0, f"step: device_step != plain (max {err})")
+    ms = cuda_ms(torch, lambda: PS.device_step(states, t_tab, eq_tab, r),
+                 reps=5)
+    emit("step", t0, states=STEP_B, half=STEP_HALF, ms=ms, max_abs_err=err)
 
 
 def main() -> int:
@@ -303,11 +546,21 @@ def main() -> int:
          kernel_chunk_ms=kernel_chunk_ms,
          plain_chunk_ms_no_yardstick=plain_chunk_ms, **res)
 
+    # ---- poseidon (K5), sumcheck (K6), merkle, step -----------------------
+    kernels["poseidon"] = phase_poseidon(torch, dev)
+    kernels.update(phase_sumcheck(torch, dev, rnd))
+    phase_merkle(torch, dev)
+    phase_step(torch, dev)
+
     # ---- e2e: the main path ----------------------------------------------
     t0 = time.perf_counter()
     from reef_tpu_torch import cli
-    msms = []
+    from reef_tpu_torch.backend import witness
+    from reef_tpu_torch.ops import sumcheck_device
+    msms, sumchecks, nlookups = [], [], []
     orig = msm_v3.msm_device_v3
+    orig_sc = sumcheck_device.device_sumcheck_rounds
+    orig_nl = witness.nlookup_prove
 
     def timed(ck, scalars, points):
         t1 = time.perf_counter()
@@ -315,23 +568,37 @@ def main() -> int:
         msms.append((ck.curve.name, len(scalars), time.perf_counter() - t1))
         return out
 
+    def timed_sc(lf, cache, *args):
+        t1 = time.perf_counter()
+        out = orig_sc(lf, cache, *args)      # ends in a copy to the host
+        sumchecks.append((cache.ell, time.perf_counter() - t1))
+        return out
+
+    def timed_nl(f, table, *args, device_cache=None, **kw):
+        t1 = time.perf_counter()
+        out = orig_nl(f, table, *args, device_cache=device_cache, **kw)
+        nlookups.append((len(table), "device" if device_cache else "host",
+                         time.perf_counter() - t1))
+        return out
+
     work = tempfile.mkdtemp(dir=nativebuild.build_dir())
     size = DNA_BYTES
-    body = "".join(random.Random(42).choice("ACGT")
-                   for _ in range(size - len(DNA_MOTIF)))
     doc = os.path.join(work, "dna.txt")
     with open(doc, "w") as fh:
-        fh.write(body + DNA_MOTIF)
+        fh.write(dna_text(size))
     argv = ["dna", "--e2e", "-d", doc, "-r",
             f"^.{{{size - len(DNA_MOTIF)}}}{DNA_MOTIF}.*", "-b", "0"]
+    routes = ("REEF_DEVICE_MSM", "REEF_DEVICE_SUMCHECK")
 
-    def e2e(route: str):
-        """One commit + prove + verify with REEF_DEVICE_MSM=route, which
-        must verify; returns its wall seconds."""
-        prev_cwd, prev_env = os.getcwd(), os.environ.get("REEF_DEVICE_MSM")
+    def e2e(msm: str, sumcheck: str):
+        """One commit + prove + verify with REEF_DEVICE_MSM=msm and
+        REEF_DEVICE_SUMCHECK=sumcheck, which must verify; returns its wall
+        seconds."""
+        prev_cwd = os.getcwd()
+        prev_env = {k: os.environ.get(k) for k in routes}
         out = io.StringIO()
         try:
-            os.environ["REEF_DEVICE_MSM"] = route
+            os.environ.update(zip(routes, (msm, sumcheck)))
             os.chdir(work)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
@@ -341,40 +608,60 @@ def main() -> int:
             wall = time.perf_counter() - t1
         finally:
             os.chdir(prev_cwd)
-            if prev_env is None:
-                os.environ.pop("REEF_DEVICE_MSM", None)
-            else:
-                os.environ["REEF_DEVICE_MSM"] = prev_env
+            for k, v in prev_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
         require("Verification PASSED" in out.getvalue(),
-                f"e2e ({route}): proof did not verify:\n" + out.getvalue())
+                f"e2e ({msm}, {sumcheck}): proof did not verify:\n"
+                + out.getvalue())
         return wall
 
+    nl_runs = {}
     try:
         msm_v3.msm_device_v3 = timed
+        sumcheck_device.device_sumcheck_rounds = timed_sc
+        witness.nlookup_prove = timed_nl
         cudabuild.reset_counts()
-        wall = e2e("1")
+        wall = e2e("1", "auto")
         launches = cudabuild.launch_counts()
         msm_v3.msm_device_v3 = orig
+        sumcheck_device.device_sumcheck_rounds = orig_sc
+        nl_runs["cold"], nlookups[:] = list(nlookups), []
         # the same run again, warm (generators, circuits and bases cached
-        # in the process): host MSMs, then device MSMs
-        host_wall = e2e("0")
-        warm_wall = e2e("1")
+        # in the process): both routes on the host, then on the card
+        host_wall = e2e("0", "0")
+        nl_runs["warm_host_routes"], nlookups[:] = list(nlookups), []
+        warm_wall = e2e("1", "auto")
+        nl_runs["warm"] = list(nlookups)
     finally:
         msm_v3.msm_device_v3 = orig
+        sumcheck_device.device_sumcheck_rounds = orig_sc
+        witness.nlookup_prove = orig_nl
         shutil.rmtree(work, ignore_errors=True)
     require(all(v > 0 for v in launches.values()),
             f"e2e: a kernel of the main path never launched: {launches}")
+    # the document table: size + EOF + EPSILON entries, padded to 2^ell
+    doc_ell = (size + 1).bit_length()
+    require(doc_ell in [ell for ell, _ in sumchecks]
+            and launches["poseidon"] >= sum(ell for ell, _ in sumchecks),
+            f"e2e: the 2^{doc_ell} document sumcheck did not run on the "
+            f"card ({sumchecks}, {launches})")
     emit("e2e", t0, doc_bytes=size, wall_s=wall, device_msms=len(msms),
          device_msm_sizes=[m[:2] for m in msms],
-         device_msm_s=sum(m[2] for m in msms), launches=launches,
-         warm_wall_s=warm_wall, warm_host_msm_wall_s=host_wall)
+         device_msm_s=sum(m[2] for m in msms),
+         device_sumchecks=[s[0] for s in sumchecks],
+         device_sumcheck_s=sum(s[1] for s in sumchecks),
+         nlookup_prove_s=nl_runs, launches=launches,
+         warm_wall_s=warm_wall, warm_host_routes_wall_s=host_wall)
 
     for name, k in kernels.items():
         k["launches"] = launches[name]
-    table = [{key: k[key] for key in (
+    table = [{**{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")}
-        for k in kernels.values()]
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        **k} for k in kernels.values()]
     print(json.dumps({"total_seconds": round(time.perf_counter() - t_all,
                                              3)}), flush=True)
     print(smi, flush=True)

@@ -5,8 +5,10 @@ pairs two-at-a-time with an arity-4 absorb [li, lc, ri, rc]; inner nodes
 absorb [left, right].  Path witnesses carry the sibling (and at the leaf
 level the sibling's (idx, char)) plus a left/right flag.
 
-The tree builds on the host (the batched device build is not part of this
-package yet).
+Device path: `build_tree_device` builds the whole tree as log2(n) batched
+Poseidon calls (ops.poseidon_device; K5 on a CUDA device), one per level;
+the per-level hashes are embarrassingly parallel.  The host path is the
+oracle.
 """
 
 from __future__ import annotations
@@ -95,3 +97,54 @@ class MerkleCommitment:
         for w in wits[1:]:
             h = _hash([h, w.opposite]) if w.l_or_r else _hash([w.opposite, h])
         return h == self.commitment
+
+
+def build_tree_device(udoc: List[int], device=None) -> int:
+    """Batched tree build on the engine device; returns the root.
+
+    The leaf level is one hash_elems over [i, c_i, i+1, c_{i+1}] (t = 5;
+    an odd tail pairs with (0, 0)); each inner level is one permutation
+    of [tag, left, right, 0, 0] (an odd level pads with a zero node)."""
+    import numpy as np
+    import torch
+
+    from ..ops import limb, poseidon_device
+    from ..utils.device import resolve
+
+    lf = limb.FQ
+    dev = resolve(device)
+    n = len(udoc)
+    if n == 0:
+        raise ValueError("build_tree_device: empty document")
+    doc = np.zeros(n + (n & 1), dtype=object)
+    doc[:n] = [v % F.Q for v in udoc]
+    idx = np.arange(0, n, 2, dtype=np.int64)
+    ri = np.where(idx + 1 < n, idx + 1, 0)
+    leaves = np.stack([idx, doc[0::2], ri, doc[1::2]])      # (4, n/2)
+    flat = lf.encode32(leaves.reshape(-1).tolist(), dev)  # (8, 4 n/2)
+    elems = flat.reshape(limb.N32, 4, -1).permute(1, 0, 2).contiguous()
+    level = poseidon_device.hash_elems(lf, elems)            # (8, n/2)
+    while level.shape[1] > 1:
+        if level.shape[1] % 2:
+            level = torch.cat([level, torch.zeros_like(level[:, :1])], dim=1)
+        m = level.shape[1] // 2
+        level = _device_hash2(lf, level.reshape(limb.N32, m, 2)
+                              .permute(2, 0, 1))
+    return lf.decode32(level)[0]
+
+
+def _device_hash2(lf, pairs):
+    """Batched inner-node hash of (2, 8, m) (left, right) rows -> (8, m):
+    absorb 2, squeeze 1 (matches the host _hash), one permutation of
+    [tag, left, right, 0, 0]."""
+    import torch
+
+    from ..ops import limb, poseidon_device
+
+    io = IOPattern([("absorb", 2), ("squeeze", 1)])
+    tag = poseidon_device.tag_elem(lf, io, pairs.device)
+    m = pairs.shape[2]
+    state = torch.cat([tag.expand(1, limb.N32, m), pairs,
+                       torch.zeros((2, limb.N32, m), dtype=torch.int32,
+                                   device=pairs.device)])
+    return poseidon_device.permute(lf, state.contiguous())[1]

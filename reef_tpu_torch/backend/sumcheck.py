@@ -211,9 +211,13 @@ def nlookup_prove(f: F.HostField, table: List[int], qs: List[int],
                   vs: List[int], running_q: Optional[List[int]],
                   running_v: Optional[int], tag: str,
                   doc_hash: Optional[int] = None,
-                  host_cache=None) -> NlookupProof:
-    """Run the prover side of one nlookup batch (r1cs.rs:2177-2393) on the
-    host.  (The device round loop is not part of this package yet.)"""
+                  device_cache=None, host_cache=None) -> NlookupProof:
+    """Run the prover side of one nlookup batch (r1cs.rs:2177-2393).
+
+    With `device_cache` (an ops.sumcheck_device.DeviceTableCache for this
+    table), the round loop (eq build, coefficients, Fiat-Shamir, folds)
+    runs on the cache's device; the host sponge state is synced back
+    afterwards."""
     p = f.p
     sc_l = logmn(len(table))
     num_vs = len(vs)
@@ -237,6 +241,18 @@ def nlookup_prove(f: F.HostField, table: List[int], qs: List[int],
     rs = [claim_r]
     for _ in range(num_vs):
         rs.append(rs[-1] * claim_r % p)
+
+    if device_cache is not None:
+        from ..ops.sumcheck_device import device_sumcheck_rounds
+        from ..ops.limb import FQ as _LFQ
+        sc_rs, g_coeffs, next_running_v = device_sumcheck_rounds(
+            _LFQ, device_cache, qs, rs, prev_q, sponge)
+        g_xsq, g_x, g_const = g_coeffs[-1]
+        last_claim = (g_xsq * sc_rs[-1] % p * sc_rs[-1] + g_x * sc_rs[-1]
+                      + g_const) % p
+        return NlookupProof(claim_r=claim_r, sc_rs=sc_rs, g_coeffs=g_coeffs,
+                            last_claim=last_claim, next_running_q=list(sc_rs),
+                            next_running_v=next_running_v, combined_qs=cqs)
 
     # native host path: eq-table build + per-round coefficient sums + folds
     # in C (the round-1 python loops dominated prove time on large docs);

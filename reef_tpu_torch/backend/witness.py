@@ -21,6 +21,11 @@ from .step_circuit import StepCircuit
 from .sumcheck import nlookup_prove
 from .table import TransitionTable, trace_preprocessing
 
+# "auto" routes a lookup table of at least this many entries to the device
+# sumcheck; the JAX package's floor, chosen on the TPU (the H100's
+# crossover against the native host rounds is not measured yet)
+DEVICE_SUMCHECK_MIN_N = 1 << 14
+
 
 class BatchResult:
     def __init__(self, **kw):
@@ -272,6 +277,38 @@ class WitnessGenerator:
 
         return wits, result
 
+    def _maybe_device_cache(self, tag: str, table):
+        """Device table cache for the sumcheck hot loop: engaged by
+        default ("auto") on a CUDA engine device for tables of at least
+        2^14 entries; REEF_DEVICE_SUMCHECK=0 keeps every batch on the
+        host, =1 forces the device route for every table (on the engine
+        device, the CPU included: there the kernels' plain versions run).
+
+        A failed kernel build or launch raises: the route never falls back
+        to the host behind the caller's back.  One device only (the mesh
+        route of the JAX package is not ported)."""
+        import os
+        mode = os.environ.get("REEF_DEVICE_SUMCHECK", "auto")
+        if mode == "0":
+            return None
+        if mode == "auto":
+            from ..utils.device import device_profile
+            if device_profile() != "local-accel":
+                return None
+        if not hasattr(self, "_dev_caches"):
+            self._dev_caches = {}
+        key = (tag, len(table))
+        if key in self._dev_caches:
+            return self._dev_caches[key]
+        cache = None
+        if mode == "1" or (mode == "auto"
+                           and len(table) >= DEVICE_SUMCHECK_MIN_N):
+            from ..ops.limb import FQ as LFQ
+            from ..ops.sumcheck_device import DeviceTableCache
+            cache = DeviceTableCache(LFQ, table)
+        self._dev_caches[key] = cache
+        return cache
+
     def _maybe_host_cache(self, tag: str, table):
         """Padded Montgomery-domain copy of a (constant) lookup table,
         built once per run: each nlookup batch clones it with a memcpy
@@ -300,6 +337,7 @@ class WitnessGenerator:
         f = F.FQ
         proof = nlookup_prove(
             f, table, qs, vs, prev_q, prev_v, tag, doc_hash,
+            device_cache=self._maybe_device_cache(tag, table),
             host_cache=self._maybe_host_cache(tag, table))
         sc_l = len(proof.sc_rs)
         for i, q in enumerate(qs):

@@ -4,13 +4,16 @@ The JAX package holds a field element as sixteen 16-bit limbs in uint32
 (numpy or jax arrays, limb axis anywhere); this package's kernels hold
 eight 32-bit limbs as int32 bit patterns (ops.limb).  Both use Montgomery
 form with R = 2^256, so converting is a repacking of the same number.
-Takes and returns numpy arrays (and torch tensors for the basis), so it
-needs neither package's device code.
+Takes numpy arrays (the JAX package's arrays as `np.asarray` gives them)
+and returns torch tensors on the CPU, or the reverse, so it needs neither
+package's device code.  The Poseidon constants are not carried across:
+the port derives its own (ops.poseidon_device).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .ec.msm import CurveKernels
 from .ec.msm_v3 import DeviceBasisV3
@@ -36,6 +39,48 @@ def limbs32_to_16(arr, axis: int) -> np.ndarray:
     out = np.stack([a & 0xFFFF, a >> 16], axis=-1).astype(np.uint32)
     out = out.reshape(a.shape[:-1] + (limb.N,))
     return np.ascontiguousarray(np.moveaxis(out, -1, axis))
+
+
+def plain_from_reference(arr) -> torch.Tensor:
+    """(..., 16) uint32 Montgomery limbs -> the plain layout, (16, ...)
+    int64."""
+    a = np.asarray(arr).astype(np.int64)
+    if a.shape[-1] != limb.N:
+        raise ValueError(f"last axis has {a.shape[-1]} limbs, not 16")
+    return torch.from_numpy(np.ascontiguousarray(np.moveaxis(a, -1, 0)))
+
+
+def plain_to_reference(t: torch.Tensor) -> np.ndarray:
+    """Inverse of `plain_from_reference`."""
+    a = np.moveaxis(t.detach().cpu().numpy(), 0, -1)
+    return np.ascontiguousarray(a.astype(np.uint32))
+
+
+def rows_from_reference(arr) -> torch.Tensor:
+    """(..., n, 16) uint32 Montgomery limbs -> the kernel layout,
+    (..., 8, n) int32: a table (n, 16) becomes (8, n), a split-halved
+    table (2, half, 16) becomes (2, 8, half)."""
+    a = np.asarray(arr)
+    if a.ndim < 2:
+        raise ValueError(f"shape {a.shape}: expected (..., n, 16)")
+    w = limbs16_to_32(a, axis=a.ndim - 1)
+    return torch.from_numpy(np.ascontiguousarray(np.swapaxes(w, -1, -2)))
+
+
+def rows_to_reference(t: torch.Tensor) -> np.ndarray:
+    """Inverse of `rows_from_reference`."""
+    w = np.swapaxes(t.detach().cpu().numpy(), -1, -2)
+    return limbs32_to_16(w, axis=w.ndim - 1)
+
+
+def states_from_reference(arr) -> torch.Tensor:
+    """Poseidon states (B, t, 16) uint32 -> (t, 8, B) int32."""
+    return rows_from_reference(np.swapaxes(np.asarray(arr), 0, 1))
+
+
+def states_to_reference(t: torch.Tensor) -> np.ndarray:
+    """Inverse of `states_from_reference`."""
+    return np.ascontiguousarray(np.swapaxes(rows_to_reference(t), 0, 1))
 
 
 def basis_from_reference(ck: CurveKernels, arr, device=None) -> DeviceBasisV3:

@@ -3,10 +3,8 @@
 // the identity (0:1:0), doubling and P + (-P).  Device counterpart of the
 // JAX package's ec/pallas_ec.py padd_tiles and padd_affine_tiles.
 //
-// Points cross device memory as structure-of-arrays int32 tensors whose
-// element (c, l, i) — coordinate c, 32-bit limb l, lane i — sits at
-// (c * 8 + l) * row + i for a row stride `row`: lane-adjacent threads read
-// adjacent words.
+// Points cross device memory as structure-of-arrays int32 tensors of
+// three field rows (X, Y, Z; see load_fe in field.cuh).
 #pragma once
 
 #include "field.cuh"
@@ -14,20 +12,6 @@
 struct point {
     fe x, y, z;
 };
-
-__device__ __forceinline__ fe load_fe(const u32* base, size_t row, int c,
-                                      size_t i) {
-    fe r;
-#pragma unroll
-    for (int l = 0; l < 8; ++l) r.v[l] = base[(size_t)(c * 8 + l) * row + i];
-    return r;
-}
-
-__device__ __forceinline__ void store_fe(u32* base, size_t row, int c,
-                                         size_t i, const fe& a) {
-#pragma unroll
-    for (int l = 0; l < 8; ++l) base[(size_t)(c * 8 + l) * row + i] = a.v[l];
-}
 
 __device__ __forceinline__ point load_point(const u32* base, size_t row,
                                             size_t i) {
@@ -89,8 +73,4 @@ __device__ __forceinline__ point padd_affine(const fe& x1, const fe& y1,
     return {fe_sub<F>(fe_mul<F>(t3, t1), fe_mul<F>(t4, y3)),
             fe_add<F>(fe_mul<F>(t1, z3), fe_mul<F>(y3, t0)),
             fe_add<F>(fe_mul<F>(z3, t4), fe_mul<F>(t0, t3))};
-}
-
-extern "C" const char* reef_cuda_error_string(int err) {
-    return cudaGetErrorString((cudaError_t)err);
 }

@@ -183,3 +183,25 @@ __device__ __forceinline__ fe fe_mul(const fe& a, const fe& b) {
     for (int i = 0; i < 8; ++i) r.v[i] = t[i];
     return fe_reduce_once<F>(r);
 }
+
+// Field elements cross device memory as structure-of-arrays int32 tensors
+// whose element (c, l, i) — field row c (a point coordinate, a Poseidon
+// lane), 32-bit limb l, lane i — sits at (c * 8 + l) * row + i for a row
+// stride `row`: lane-adjacent threads read adjacent words.
+__device__ __forceinline__ fe load_fe(const u32* base, size_t row, int c,
+                                      size_t i) {
+    fe r;
+#pragma unroll
+    for (int l = 0; l < 8; ++l) r.v[l] = base[(size_t)(c * 8 + l) * row + i];
+    return r;
+}
+
+__device__ __forceinline__ void store_fe(u32* base, size_t row, int c,
+                                         size_t i, const fe& a) {
+#pragma unroll
+    for (int l = 0; l < 8; ++l) base[(size_t)(c * 8 + l) * row + i] = a.v[l];
+}
+
+extern "C" const char* reef_cuda_error_string(int err) {
+    return cudaGetErrorString((cudaError_t)err);
+}

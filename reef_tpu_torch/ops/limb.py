@@ -89,8 +89,8 @@ class LimbField:
 
     def encode32(self, xs: Sequence[int], device="cpu") -> torch.Tensor:
         """Python ints -> Montgomery (8, n) int32 device-layout tensor."""
-        w = _ints_to_words([self.mont(x) for x in xs], np.uint32)
-        return torch.from_numpy(w.T.view(np.int32).copy()).to(device)
+        w = mont_words(self, xs).view(np.int32)
+        return torch.from_numpy(w.T.copy()).to(device)
 
     def decode32(self, t: torch.Tensor) -> List[int]:
         """(8, n) device-layout Montgomery tensor -> python ints."""
@@ -109,6 +109,27 @@ class LimbField:
                              device=like.device)
             self._consts[key] = c
         return c.reshape((N,) + (1,) * (like.dim() - 1))
+
+
+def mont_words(f: LimbField, xs: Sequence[int]) -> np.ndarray:
+    """(len(xs), 8) uint32 limbs of each x's Montgomery form.  Runs the
+    native host encoder (ops.native_fieldvec) where it is built, else
+    python ints; values below 2^63 skip the python-int packing."""
+    from . import native_fieldvec as FV
+    if not FV.available():
+        return _ints_to_words([f.mont(x) for x in xs], np.uint32)
+    try:
+        small = np.asarray(xs, dtype=np.int64).reshape(-1)
+    except OverflowError:
+        small = None
+    if small is not None and (small >= 0).all():
+        w = np.zeros((len(small), N32), np.uint32)
+        w[:, 0] = small & 0xFFFFFFFF
+        w[:, 1] = small >> 32
+        raw = FV.to_mont_packed(w.tobytes(), f.p_int)
+    else:
+        raw = FV.to_mont(xs, f.p_int)
+    return np.frombuffer(raw, dtype=np.uint32).reshape(len(xs), N32)
 
 
 FP = LimbField(F.FP)
@@ -160,14 +181,14 @@ def _borrow_(d: torch.Tensor) -> torch.Tensor:
     return bor
 
 
-def _cond_sub_p(f: LimbField, r: torch.Tensor) -> torch.Tensor:
-    """r - p where r >= p, else r (r < 2p, canonical limbs)."""
+def cond_sub_p(f: LimbField, r: torch.Tensor) -> torch.Tensor:
+    """r - p where r >= p, else r (r < 2^256, canonical limbs)."""
     d = r - f.const("p", r)
     return torch.where(_borrow_(d).bool(), r, d)
 
 
 def add(f: LimbField, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return _cond_sub_p(f, _carry_(a + b))
+    return cond_sub_p(f, _carry_(a + b))
 
 
 def sub(f: LimbField, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -211,7 +232,7 @@ def _redc_inplace(f: LimbField, cols: torch.Tensor) -> torch.Tensor:
         cols[i:i + N].addcmul_(p, m)
         torch.bitwise_right_shift(cols[i], BITS, out=m)
         cols[i + 1].add_(m)
-    return _cond_sub_p(f, _carry_(cols[N:]))
+    return cond_sub_p(f, _carry_(cols[N:]))
 
 
 def sqr(f: LimbField, a: torch.Tensor) -> torch.Tensor:

@@ -180,11 +180,14 @@ def gather_packed(pv: PackedVec, idx_c, n_out: int) -> PackedVec:
 
 
 def to_mont(vals: Sequence[int], p: int) -> bytes:
+    return to_mont_packed(pack(vals, p), p)
+
+
+def to_mont_packed(buf: bytes, p: int) -> bytes:
+    """Montgomery forms of packed canonical elements (32 B each)."""
     lib = _load()
-    fid = FIELD_ID[p]
-    buf = pack(vals, p)
     out = ctypes.create_string_buffer(len(buf))
-    lib.fv_to_mont(out, buf, len(vals), fid)
+    lib.fv_to_mont(out, buf, len(buf) // 32, FIELD_ID[p])
     return out.raw
 
 

@@ -9,8 +9,10 @@ Role in the system (mirrors neptune 8.1 in the reference):
     absorb/squeeze semantics, which is what makes proofs verify,
   - Nova's random oracle.
 
-This module is host-only (python ints).  The batched device permutation
-is not part of this package yet.
+This module is host-only (python ints) and imports no torch.  The batched
+device permutation lives in ops.poseidon_device; its public names
+(`permute`, `permute_plain`, `hash_elems`, `tag_elem`) are forwarded
+lazily via module `__getattr__`, so callers can use `poseidon.permute(...)`.
 """
 
 from __future__ import annotations
@@ -19,6 +21,16 @@ import hashlib
 
 from . import field as F
 from .poseidon_constants import host_permutation
+
+_DEVICE_NAMES = ("permute", "permute_plain", "hash_elems", "tag_elem",
+                 "_device_consts")
+
+
+def __getattr__(name):
+    if name in _DEVICE_NAMES:
+        from . import poseidon_device
+        return getattr(poseidon_device, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 # ---------------------------------------------------------------------------
 # SAFE IOPattern + sponge

@@ -8,8 +8,9 @@ package's build directory under a name keyed on a hash of every csrc
 file and the flags, so an edited source or flag set is never served a
 stale library.  `build()` starts one nvcc per source, all at once.
 
-Every wrapper of a kernel calls `count(name)` once per launch; a run
-shows that it went through the kernels by reading `launch_counts()`.
+Every wrapper of a kernel calls `count(kernel)` once per launch of that
+kernel (a library may hold several, one per launcher); a run shows that
+it went through the kernels by reading `launch_counts()`.
 """
 
 from __future__ import annotations
@@ -31,22 +32,33 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(
 FLAGS = ["-O3", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
-# kernel library -> (source, {exported launcher: argtypes}); every
-# launcher returns the cudaError_t of its launch as an int
+# kernel library -> (source, {exported function: argtypes}); every
+# function returns a cudaError_t as an int
 LIBS = {
     "padd": ("padd.cu", {"reef_padd": [P, P, P, I, I, P]}),
     "msm_tree": ("msm_tree.cu", {"reef_tree_pass": [P, P, I, I, I, I, I,
                                                     P]}),
+    "poseidon": ("poseidon.cu", {
+        "reef_poseidon_set_consts": [I, I, P, P],
+        "reef_poseidon": [P, P, I, I, I, P]}),
+    "sumcheck": ("sumcheck.cu", {
+        "reef_sc_coeffs": [P, P, P, P, L, L, L, I, I, P, P, P, P, I, I, P],
+        "reef_sc_fold": [P, P, P, P, L, L, P, L, P, P, L, I, P],
+        "reef_sc_eq_step": [P, L, P, L, P, P, I, P]}),
 }
 
+# the kernels whose launches are counted (the K6 library has three)
+KERNELS = ("padd", "msm_tree", "poseidon", "sumcheck_coeffs",
+           "sumcheck_fold", "sumcheck_eq")
+
 _LOADED: Dict[str, ctypes.CDLL] = {}
-_COUNTS: Dict[str, int] = {name: 0 for name in LIBS}
+_COUNTS: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
-def count(name: str) -> None:
-    _COUNTS[name] += 1
+def count(kernel: str) -> None:
+    _COUNTS[kernel] += 1
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,0 +1,149 @@
+"""reef_tpu_torch Poseidon and the device Merkle build against the JAX package.
+
+The port's plain permutation (ops/poseidon_device.py) must give, for every
+state, exactly the JAX package's host permutation
+(`poseidon_constants.host_permutation`, the oracle its own
+tests/test_poseidon.py holds `permute` to), for both widths and both
+fields; `hash_elems` must equal the JAX package's HostSponge; the port's
+own round constants and MDS must equal the reference's; and the batched
+Merkle build must give the root of the reference's MerkleCommitment.
+Field arithmetic is exact, so every comparison is of integers, with no
+tolerance.  Tests marked `cuda` hold K5 (csrc/poseidon.cu) against the
+plain version and skip where torch sees no CUDA device.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_support import (no_compile_cache_writes,  # noqa: F401
+                            one_torch_thread)
+from reef_tpu.backend.merkle import MerkleCommitment
+from reef_tpu.ops import field as ref_field
+from reef_tpu.ops import limb as ref_limb
+from reef_tpu.ops.poseidon import HostSponge, IOPattern
+from reef_tpu.ops.poseidon_constants import host_permutation, poseidon_params
+from reef_tpu_torch import convert
+from reef_tpu_torch.backend.merkle import build_tree_device
+from reef_tpu_torch.ops import limb, poseidon, poseidon_device, poseidon_kernel
+from reef_tpu_torch.utils import cudabuild
+
+FIELDS = {"fq": (limb.FQ, ref_limb.FQ), "fp": (limb.FP, ref_limb.FP)}
+
+
+def _states(lf, t: int, B: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return [[int.from_bytes(rng.bytes(32), "little") % lf.p_int
+             for _ in range(t)] for _ in range(B)]
+
+
+def _to_port(lf, states, device="cpu") -> torch.Tensor:
+    """python-int states -> (t, 8, B) int32."""
+    t = len(states[0])
+    return torch.stack([lf.encode32([s[l] for s in states], device)
+                        for l in range(t)])
+
+
+def _from_port(lf, x: torch.Tensor):
+    cols = [lf.decode32(x[l]) for l in range(x.shape[0])]
+    return [list(s) for s in zip(*cols)]
+
+
+@pytest.mark.parametrize("B", [1, 7])
+@pytest.mark.parametrize("t", [5, 9])
+@pytest.mark.parametrize("name", sorted(FIELDS))
+def test_plain_permute_matches_reference(name, t, B):
+    lf = FIELDS[name][0]
+    states = _states(lf, t, B, seed=t * 100 + B)
+    got = _from_port(lf, poseidon.permute(lf, _to_port(lf, states)))
+    assert got == [host_permutation(lf.p_int, s) for s in states]
+
+
+@pytest.mark.parametrize("t", [5, 9])
+@pytest.mark.parametrize("name", sorted(FIELDS))
+def test_constants_match_reference(name, t):
+    """The port derives its own round constants and MDS."""
+    lf = FIELDS[name][0]
+    rc_w, mds_w = poseidon_device._device_consts(lf, t)
+    rc_ref, mds_ref = poseidon_params(lf.p_int, t)
+    dec = limb._words_to_ints
+    assert [lf.unmont(x) for x in dec(rc_w.reshape(-1, 8), 32)] == \
+        list(rc_ref)
+    assert [lf.unmont(x) for x in dec(mds_w.reshape(-1, 8), 32)] == \
+        [m for row in mds_ref for m in row]
+
+
+@pytest.mark.parametrize("t", [5, 9])
+def test_hash_elems_matches_host_sponge(t):
+    lf = limb.FQ
+    rows = _states(lf, t - 1, 3, seed=t)
+    elems = _to_port(lf, rows)
+    got = lf.decode32(poseidon.hash_elems(lf, elems, t))
+    io = IOPattern([("absorb", t - 1), ("squeeze", 1)])
+    want = []
+    for row in rows:
+        sp = HostSponge(ref_field.FQ, io, rate=t - 1)
+        sp.absorb(row)
+        want.append(sp.squeeze(1)[0])
+    assert got == want
+
+
+def test_states_carry_across_from_reference():
+    """JAX-package limb arrays -> the port's layout -> permuted -> back:
+    the reference's Montgomery limbs of the host permutation."""
+    lf, ref_lf = FIELDS["fq"]
+    states = _states(lf, 5, 3, seed=11)
+    ref_arr = np.stack([ref_lf.encode_host(s) for s in states])  # (3, 5, 16)
+    port = convert.states_from_reference(ref_arr)
+    assert port.shape == (5, 8, 3)
+    out = convert.states_to_reference(poseidon.permute(lf, port))
+    want = np.stack([ref_lf.encode_host(host_permutation(lf.p_int, s))
+                     for s in states])
+    assert np.array_equal(out, want)
+    plain = convert.plain_from_reference(ref_arr)
+    assert np.array_equal(convert.plain_to_reference(plain), ref_arr)
+
+
+@pytest.mark.parametrize("n", [300, 7])
+def test_build_tree_device_matches_reference(n):
+    rng = np.random.default_rng(n)
+    udoc = [int(v) for v in rng.integers(0, 4, size=n)]
+    assert build_tree_device(udoc, device="cpu") == \
+        MerkleCommitment(udoc).commitment
+
+
+def test_permute_on_cpu_runs_the_plain_version():
+    """A CPU tensor never reaches the kernel; a width without parameters
+    or a wrong dtype raises."""
+    lf = limb.FQ
+    before = cudabuild.launch_counts()
+    x = _to_port(lf, _states(lf, 5, 2, seed=3))
+    assert torch.equal(poseidon.permute(lf, x),
+                       poseidon_device.permute_plain(lf, x))
+    assert cudabuild.launch_counts() == before
+    with pytest.raises(ValueError):
+        poseidon_kernel.launch(lf, x)        # the kernel takes CUDA only
+    with pytest.raises(ValueError):
+        poseidon.permute(lf, x[:1])          # no parameters for t = 1
+    with pytest.raises(TypeError):
+        poseidon.permute(lf, x.long())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [5, 9])
+@pytest.mark.parametrize("name", sorted(FIELDS))
+def test_kernel_matches_plain_on_card(name, t):
+    """K5 on the card, exactly against its plain version and the host
+    permutation, each launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lf = FIELDS[name][0]
+    states = _states(lf, t, 37, seed=t)
+    x = _to_port(lf, states, "cuda")
+    before = cudabuild.launch_counts()["poseidon"]
+    got = poseidon.permute(lf, x)
+    torch.cuda.synchronize()
+    assert cudabuild.launch_counts()["poseidon"] == before + 1
+    assert torch.equal(got.cpu(), poseidon_device.permute_plain(lf, x.cpu()))
+    assert _from_port(lf, got) == [host_permutation(lf.p_int, s)
+                                   for s in states]

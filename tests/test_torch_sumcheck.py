@@ -1,0 +1,229 @@
+"""reef_tpu_torch's device nlookup sumcheck against the JAX package (CPU).
+
+The port's device route (ops/sumcheck_device.py: the eq build, the round
+loop, the Poseidon sponge on the device, through the K5 and K6 wrappers,
+which run their plain versions on CPU tensors) must give exactly the JAX
+package's host transcript: the challenges, the round coefficients, the
+next running claim and the sponge state afterwards.  The flagship step's
+round is held to big-int python; the witness routing to the device
+cache follows REEF_DEVICE_SUMCHECK; and a proof made with the document
+sumcheck forced onto the device route verifies under the JAX package's
+verifier.  Tests marked `cuda` hold the K6 kernels against their plain
+versions and skip where torch sees no CUDA device.
+"""
+
+import contextlib
+import io
+import random
+
+import pytest
+import torch
+
+from _torch_support import (no_compile_cache_writes,  # noqa: F401
+                            one_torch_thread)
+from reef_tpu import cli as ref_cli
+from reef_tpu.backend import sumcheck as ref_sc
+from reef_tpu.backend.table import TransitionTable, doc_transform
+from reef_tpu.frontend import parser, regex as R
+from reef_tpu.frontend.safa import SAFA
+from reef_tpu.ops import field as ref_field
+from reef_tpu_torch import cli
+from reef_tpu_torch.backend import sumcheck as port_sc
+from reef_tpu_torch.backend import witness
+from reef_tpu_torch.models import prover_step
+from reef_tpu_torch.ops import limb
+from reef_tpu_torch.ops import sumcheck_device as SD
+from reef_tpu_torch.ops import sumcheck_kernel as K
+from reef_tpu_torch.utils import cudabuild, device
+
+# real lookup tables: (alphabet, regex, document) -> the transition table,
+# or ("doc", n) -> an n-character document projected as the nldoc table
+TABLES = {
+    "nl64": ("abcd", "^(ab|cd){2,5}$", "abcdab"),
+    "nl256": ("abcdefghij", ".*(abc|def|ghi)+.*j", "abcdefghij"),
+    "doc300": ("doc", 300),
+}
+
+
+def _table(case):
+    if case[0] == "doc":
+        rng = random.Random(case[1])
+        return [rng.randrange(4) for _ in range(case[1])]
+    ab, rx, doc = case
+    safa = SAFA(ab, R.simpl(parser.parse(rx)))
+    codes = [ord(c) for c in doc]
+    udoc = doc_transform(safa.ab, codes)
+    return TransitionTable(safa, udoc, len(udoc), len(codes),
+                           batch_size=2).table
+
+
+def _capture_sponges(monkeypatch, module):
+    """Record every HostSponge that `module` makes."""
+    made = []
+    base = module.HostSponge
+
+    class Recorded(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(module, "HostSponge", Recorded)
+    return made
+
+
+@pytest.mark.parametrize("name", sorted(TABLES))
+def test_device_route_matches_reference(monkeypatch, name):
+    f = ref_field.FQ
+    table = _table(TABLES[name])
+    rng = random.Random(len(table))
+    qs = [rng.randrange(len(table)) for _ in range(5)]
+    qs[3] = qs[1]                                  # a duplicate lookup row
+    vs = [table[q] for q in qs]
+    ell = max(1, (len(table) - 1).bit_length())
+    prev_q = [rng.randrange(f.p) for _ in range(ell)]
+    prev_v = ref_sc.verifier_mle_eval(f, table, prev_q)
+    ref_sponges = _capture_sponges(monkeypatch, ref_sc)
+    port_sponges = _capture_sponges(monkeypatch, port_sc)
+    want = ref_sc.nlookup_prove(f, table, qs, vs, prev_q, prev_v, "nldoc",
+                                doc_hash=12345)
+    cache = SD.DeviceTableCache(limb.FQ, table, device="cpu")
+    assert cache.t_dev.shape == (8, 1 << ell)
+    got = port_sc.nlookup_prove(f, table, qs, vs, prev_q, prev_v, "nldoc",
+                                doc_hash=12345, device_cache=cache)
+    assert got.sc_rs == want.sc_rs
+    assert got.g_coeffs == want.g_coeffs
+    assert got.next_running_v == want.next_running_v
+    assert (got.claim_r, got.last_claim, got.next_running_q,
+            got.combined_qs) == (want.claim_r, want.last_claim,
+                                 want.next_running_q, want.combined_qs)
+    (rs,), (ps,) = ref_sponges, port_sponges
+    assert (ps.state, ps.pos, ps.squeezing) == (rs.state, rs.pos,
+                                                rs.squeezing)
+
+
+def test_sumcheck_round_matches_bigint():
+    lf = limb.FQ
+    p = lf.p_int
+    _, t_tab, eq_tab, r = prover_step.example_args(batch=1, half=8, seed=5,
+                                                   device="cpu")
+    T = [lf.decode32(t_tab[k]) for k in range(2)]
+    E = [lf.decode32(eq_tab[k]) for k in range(2)]
+    rr = lf.decode32(r)[0]
+    ts = [(b - a) % p for a, b in zip(*T)]
+    es = [(b - a) % p for a, b in zip(*E)]
+    t_fold, e_fold, xsq, x, con = prover_step.sumcheck_round(lf, t_tab,
+                                                             eq_tab, r)
+    assert lf.decode32(xsq) == [sum(a * b for a, b in zip(ts, es)) % p]
+    assert lf.decode32(x) == [sum(e * a + d * b for e, a, d, b in
+                                  zip(es, T[0], ts, E[0])) % p]
+    assert lf.decode32(con) == [sum(a * b for a, b in zip(T[0], E[0])) % p]
+    assert lf.decode32(t_fold) == [(a + rr * d) % p for a, d in zip(T[0], ts)]
+    assert lf.decode32(e_fold) == [(a + rr * d) % p for a, d in zip(E[0], es)]
+
+
+def test_build_eq_matches_reference_eq_table():
+    f = ref_field.FQ
+    lf = limb.FQ
+    rng = random.Random(9)
+    ell, qs = 5, [3, 17, 3, 30]
+    rs = [rng.randrange(f.p) for _ in range(len(qs) + 1)]
+    prev_q = [rng.randrange(f.p) for _ in range(ell)]
+    combined = {}
+    for q, r in zip(qs, rs):
+        combined[q] = (combined.get(q, 0) + r) % f.p
+    rows = sorted(combined)
+    eq = SD.build_eq(lf, ell, torch.tensor(rows),
+                     lf.encode32([combined[q] for q in rows]),
+                     lf.encode32([rs[-1]]), lf.encode32(prev_q))
+    assert lf.decode32(eq) == ref_sc.gen_eq_table(f, rs, qs, prev_q)
+
+
+@pytest.mark.parametrize("mode,profile,n,engaged", [
+    ("0", "local-accel", 1 << 14, False),
+    ("auto", "cpu", 1 << 14, False),
+    ("auto", "local-accel", (1 << 14) - 1, False),
+    ("auto", "local-accel", 1 << 14, True),
+    ("1", "cpu", 64, True),
+])
+def test_device_cache_routing(monkeypatch, mode, profile, n, engaged):
+    """REEF_DEVICE_SUMCHECK: 0 = host, 1 = device route for any table,
+    auto = device route for tables >= 2^14 on a CUDA engine device (here
+    the profile is forced and the cache lands on the selected CPU)."""
+    monkeypatch.setenv("REEF_DEVICE_SUMCHECK", mode)
+    monkeypatch.setenv("REEF_DEVICE_PROFILE", profile)
+    monkeypatch.setattr(device, "_SELECTED", torch.device("cpu"))
+    gen = witness.WitnessGenerator.__new__(witness.WitnessGenerator)
+    table = list(range(n))
+    cache = gen._maybe_device_cache("nldoc", table)
+    assert (cache is not None) == engaged
+    assert gen._maybe_device_cache("nldoc", table) is cache
+    if engaged:
+        assert cache.device.type == "cpu"
+        assert limb.FQ.decode32(cache.t_dev[:, :3]) == [0, 1, 2]
+
+
+def _run(main, argv) -> str:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        main(argv)
+    return out.getvalue()
+
+
+def test_forced_device_sumcheck_e2e_verifies_with_reference(monkeypatch,
+                                                            tmp_path):
+    """Commit and prove with both nlookup batches on the device route (plain
+    versions on the CPU; MSMs on the host), then verify with the JAX
+    package's verifier."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("REEF_DEVICE_SUMCHECK", "1")
+    monkeypatch.setenv("REEF_DEVICE_MSM", "0")
+    monkeypatch.setattr(device, "_SELECTED", None)
+    calls = []
+    orig = SD.device_sumcheck_rounds
+
+    def counted(lf, cache, *a):
+        calls.append((cache.device.type, cache.ell))
+        return orig(lf, cache, *a)
+
+    monkeypatch.setattr(SD, "device_sumcheck_rounds", counted)
+    (tmp_path / "doc.txt").write_text("aaaaaaaab")
+    argv = ["ascii", "-d", "doc.txt", "-r", ".*b"]
+    _run(cli.main, argv[:1] + ["--commit"] + argv[1:] + ["--device", "cpu"])
+    _run(cli.main, argv[:1] + ["--prove"] + argv[1:] + ["--device", "cpu"])
+    assert sorted(set(calls)) == [("cpu", 3), ("cpu", 4)]
+    assert "Verification PASSED" in _run(ref_cli.main,
+                                         argv[:1] + ["--verify"] + argv[1:])
+
+
+def _rows(n, seed):
+    g = torch.Generator().manual_seed(seed)
+    return prover_step.random_elems((n,), g, "cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half", [1, 256, 1 << 12])
+def test_kernels_match_plain_on_card(half):
+    """K6's three kernels on the card, exactly against their plain
+    versions, each launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lf, dev = limb.FQ, torch.device("cuda")
+    T, E, r = _rows(2 * half, 1), _rows(2 * half, 2), _rows(1, 3)
+    st = _rows(9, 4).T.reshape(9, 8, 1).contiguous()
+    halves = (T[:, :half], T[:, half:], E[:, :half], E[:, half:])
+    dh = [h.to(dev) for h in halves]
+    before = cudabuild.launch_counts()
+    g, s = K.coeffs(lf, *dh, st.to(dev))
+    fk = K.fold(lf, *dh, r.to(dev))
+    ek = K.eq_step(lf, T[:, :half].contiguous().to(dev), r.to(dev), E.to(dev))
+    torch.cuda.synchronize()
+    after = cudabuild.launch_counts()
+    gp, sp = K.coeffs_plain(lf, *halves, st)
+    fp = K.fold_plain(lf, *halves, r)
+    assert torch.equal(g.cpu(), gp) and torch.equal(s.cpu(), sp)
+    assert torch.equal(fk[0].cpu(), fp[0]) and torch.equal(fk[1].cpu(), fp[1])
+    assert torch.equal(ek.cpu(), K.eq_step_plain(lf, T[:, :half], r, E))
+    assert after["sumcheck_coeffs"] - before["sumcheck_coeffs"] == \
+        (1 if half <= K.THREADS else 2)
+    assert after["sumcheck_fold"] == before["sumcheck_fold"] + 1
+    assert after["sumcheck_eq"] == before["sumcheck_eq"] + 1
