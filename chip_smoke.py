@@ -32,10 +32,30 @@ script exits non-zero and prints no result:
           to the host MerkleCommitment
   step    the flagship device_step at B = 2^19, half = 2^19 against the
           plain versions
+  field   K3 and K4 (csrc/mont.cu) at B = 2^20 on both fields against
+          limb.mul and limb.redc_cols: random elements with the lanes 0,
+          1 and p-1, then schoolbook product columns and columns below
+          2^31 of values in [pR, 5p^2); exact, a few lanes against python
+          ints
+  pippenger  the v2 Pippenger msm_device (ec/msm_pippenger.py, its point
+          adds' products on K3) at n = 2^16 on Pallas (8 chunks of 8192)
+          and 2^14 on Vesta against the native host MSM; exact, K3 must
+          have launched, no plain product may have run on the card, and
+          limb.mul must be the plain function again
+  mxu     the MXU Poseidon (ops/poseidon_mxu.py) under
+          field_kernel.enabled(redc=True) at t = 5, B = 2^14 and 2^19,
+          and t = 9, B = 4096 on both fields, against K5 on the same
+          states; exact, K3 and K4 must have launched and no plain
+          product or REDC may have run on the card; permutations/s
+  msm_aux the binary msm.msm_device (its point adds on K1) at n = 256 and
+          msm_pallas (K1) at n = 2048 against the native host MSM;
+          exact, timed, K1 must have launched (both are off-path)
   e2e     `cli dna --e2e` in-process with REEF_DEVICE_MSM=1 and
           REEF_DEVICE_SUMCHECK=auto on the 1 MB document of the
           reference's dna.sh workload (seed 42); must prove and verify,
-          and every kernel must have launched (the 2^20-entry document
+          and every kernel of its path (K1, K2, K5, K6; K3 and K4 report
+          the launches of their own phases) must have launched (the
+          2^20-entry document
           sumcheck runs on the card: K5 once a round).  The device MSMs
           and the device sumcheck are timed; then the same run is timed
           again in the warm process, with both routes on the host
@@ -91,6 +111,17 @@ SUMCHECK_N = 1 << 16
 KERNEL_HALF = 1 << 19
 MERKLE_CHECK_N = 1 << 16
 STEP_B, STEP_HALF = 1 << 19, 1 << 19
+FIELD_B = 1 << 20
+PIPPENGER_N = {"pallas": 1 << 16, "vesta": 1 << 14}
+MXU_B = (1 << 14, 1 << 19)
+MXU_T9_B = 4096
+AUX_BINARY_N, AUX_PALLAS_N = 256, 2048
+# the e2e's kernels: K1, K2, K5 and K6 (K3 and K4 run off its path)
+E2E_KERNELS = ("padd", "msm_tree", "poseidon", "sumcheck_coeffs",
+               "sumcheck_fold", "sumcheck_eq")
+# a Montgomery reduction alone: 8 rounds of one 8-limb multiply-add chain
+# pair (lo and hi) plus one m = t0*n0
+MADS_PER_REDC = 8 * (2 * 8 + 1)
 
 
 def emit(phase: str, t0: float, **kw) -> None:
@@ -352,6 +383,262 @@ def phase_step(torch, dev) -> None:
     emit("step", t0, states=STEP_B, half=STEP_HALF, ms=ms, max_abs_err=err)
 
 
+def mxu_range_cols(torch, lf, B: int, g, dev):
+    """(32, B) int64 columns, each below 2^31, of values in [pR, pR + p^2)
+    within [pR, 5p^2): the MXU Poseidon's accumulations that need K4's
+    second subtract.  pR plus a random product's schoolbook columns,
+    carried to 16-bit limbs, then random amounts moved one column down."""
+    from reef_tpu_torch.models.prover_step import random_elems
+    from reef_tpu_torch.ops import field as F
+    from reef_tpu_torch.ops import limb
+    x = limb.split32(random_elems((B,), g, dev))
+    y = limb.split32(random_elems((B,), g, dev))
+    cols = torch.zeros((32, B), dtype=torch.int64, device=dev)
+    for i in range(16):
+        cols[i:i + 16] += x[i] * y
+    cols += torch.tensor(F.to_limbs(lf.p_int << 256, 32), device=dev)[:, None]
+    limb._carry_(cols)
+    for k in range(31, 0, -1):
+        cap = torch.clamp(cols[k], max=1 << 14) + 1
+        r = (torch.rand(B, generator=g).to(dev) * cap).long()
+        cols[k] -= r
+        cols[k - 1] += r << 16
+    return cols
+
+
+def phase_field(torch, dev) -> dict:
+    """K3 and K4 (csrc/mont.cu) against their plain versions on both
+    fields; returns their kernel-table rows (launches filled in later)."""
+    from reef_tpu_torch.models.prover_step import random_elems
+    from reef_tpu_torch.ops import field as F
+    from reef_tpu_torch.ops import field_kernel as FK
+    from reef_tpu_torch.ops import limb
+    t0 = time.perf_counter()
+    B = FIELD_B
+    g = torch.Generator(device="cpu").manual_seed(9)
+    res = {}
+    for lf in (limb.FQ, limb.FP):
+        a = limb.split32(random_elems((B,), g, dev)).contiguous()
+        b = limb.split32(random_elems((B,), g, dev)).contiguous()
+        for lane, v in enumerate((0, 1, lf.p_int - 1)):
+            a[:, lane] = torch.tensor(F.to_limbs(v), device=dev)
+            b[:, B - 1 - lane] = torch.tensor(F.to_limbs(v), device=dev)
+        got = FK.mont_mul(lf, a, b)
+        mul_err = max_err(got, limb.mul(lf, a, b))
+        require(mul_err == 0, f"mont_mul {lf.name}: kernel != plain")
+        for lane in (0, 1, 2, B - 3, B - 2, B - 1, B // 3):
+            x, y = (F.from_limbs(t[:, lane].tolist()) for t in (a, b))
+            require(F.from_limbs(got[:, lane].tolist())
+                    == x * y * lf.rinv_int % lf.p_int,
+                    f"mont_mul {lf.name}: lane {lane} != python ints")
+        school = torch.zeros((32, B), dtype=torch.int64, device=dev)
+        for i in range(16):
+            school[i:i + 16] += a[i] * b
+        mxu = mxu_range_cols(torch, lf, B, g, dev)
+        redc_err = 0
+        for name, cols in (("schoolbook", school), ("mxu range", mxu)):
+            got_r = FK.mont_redc_cols(lf, cols)
+            err = max_err(got_r, limb.redc_cols(lf, cols))
+            require(err == 0, f"mont_redc {lf.name} {name}: kernel != plain")
+            redc_err = max(redc_err, err)
+        for lane in (0, B - 1, B // 5):
+            v = sum(int(c) << (16 * k) for k, c in enumerate(
+                mxu[:, lane].tolist()))
+            require(lf.p_int << 256 <= v < 5 * lf.p_int ** 2
+                    and max(mxu[:, lane].tolist()) < 1 << 31,
+                    "mont_redc: an MXU-range lane out of its range")
+            require(F.from_limbs(got_r[:, lane].tolist())
+                    == v * lf.rinv_int % lf.p_int,
+                    f"mont_redc {lf.name}: lane {lane} != python ints")
+        res[lf.name] = {
+            "mul_ms": cuda_ms(torch, lambda: FK.mont_mul(lf, a, b), reps=20),
+            "mul_plain_ms": cuda_ms(torch, lambda: limb.mul(lf, a, b),
+                                    reps=2),
+            "redc_ms": cuda_ms(torch, lambda: FK.mont_redc_cols(lf, mxu),
+                               reps=20),
+            "redc_plain_ms": cuda_ms(torch, lambda: limb.redc_cols(lf, mxu),
+                                     reps=2),
+            "mul_max_abs_err": mul_err, "redc_max_abs_err": redc_err}
+    mul_bms, mul_by = bound_ms(3 * 16 * 8 * B, B * MADS_PER_MUL)
+    redc_bms, redc_by = bound_ms((32 + 16) * 8 * B, B * MADS_PER_REDC)
+    emit("field", t0, B=B, mul_bound_ms=mul_bms, redc_bound_ms=redc_bms,
+         **res)
+    fq = res[limb.FQ.name]
+    common = {"route": "cuda", "source": "reef_tpu_torch/csrc/mont.cu",
+              "library_ms": None}
+    return {
+        "mont_mul": {
+            "name": "mont_mul", **common,
+            "replaces": "reef_tpu/ops/pallas_field.py:128",
+            "max_abs_err": max(r["mul_max_abs_err"] for r in res.values()),
+            "ms": fq["mul_ms"], "plain_ms": fq["mul_plain_ms"],
+            "bound_ms": mul_bms, "bound_by": mul_by,
+            "shape": f"(16, {B}) x (16, {B}) int64, Fq; launches per "
+                     f"v2 Pippenger MSM at 2^16"},
+        "mont_redc": {
+            "name": "mont_redc", **common,
+            "replaces": "reef_tpu/ops/pallas_field.py:184",
+            "max_abs_err": max(r["redc_max_abs_err"] for r in res.values()),
+            "ms": fq["redc_ms"], "plain_ms": fq["redc_plain_ms"],
+            "bound_ms": redc_bms, "bound_by": redc_by,
+            "shape": f"(32, {B}) -> (16, {B}) int64, Fq, values in "
+                     f"[pR, 5p^2); launches per MXU Poseidon batch of "
+                     f"2^14 states"}}
+
+
+@contextlib.contextmanager
+def no_plain_products_on_card(phase: str):
+    """Fail `phase` if a plain Montgomery product or REDC (limb.mul's and
+    limb.redc_cols' body, `limb._redc_inplace`) ran on a CUDA tensor
+    inside the block: with the field-kernel hook on, every one must be
+    K3 or K4."""
+    from reef_tpu_torch.ops import limb
+    real, on_card = limb._redc_inplace, []
+
+    def spy(f, cols, *args, **kw):
+        if cols.is_cuda:
+            on_card.append(tuple(cols.shape))
+        return real(f, cols, *args, **kw)
+
+    limb._redc_inplace = spy
+    try:
+        yield
+    finally:
+        limb._redc_inplace = real
+    require(not on_card, f"{phase}: {len(on_card)} plain products on the "
+            f"card (first batch {on_card[:1]})")
+
+
+def phase_pippenger(torch, dev, rnd) -> int:
+    """The v2 Pippenger MSM (ec/msm_pippenger.py, its products on K3)
+    against the native host MSM; returns K3's launches in the 2^16
+    Pallas MSM."""
+    from reef_tpu_torch.backend.commitment import PedersenGens
+    from reef_tpu_torch.ec import msm_pippenger as mp
+    from reef_tpu_torch.ec import native_msm
+    from reef_tpu_torch.ec.msm import kernels_for
+    from reef_tpu_torch.ec.pasta import PALLAS, VESTA
+    from reef_tpu_torch.ops import limb
+    from reef_tpu_torch.utils import cudabuild
+    t0 = time.perf_counter()
+    plain_mul = limb.mul
+    res, k3 = {}, None
+    for cv in (PALLAS, VESTA):
+        n = PIPPENGER_N[cv.name]
+        ck = kernels_for(cv)
+        gens = PedersenGens(cv, b"chip_smoke/msm", n)
+        scalars = [rnd.randrange(cv.order) for _ in range(n)]
+        t1 = time.perf_counter()
+        basis = mp.DeviceBasis(ck, gens.G, device=dev)
+        upload_s = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        cudabuild.reset_counts()
+        t1 = time.perf_counter()
+        with no_plain_products_on_card(f"pippenger {cv.name}"):
+            got = mp.msm_device(ck, scalars, basis)     # ends on the host
+        secs = time.perf_counter() - t1
+        launches = cudabuild.launch_counts()
+        if cv is PALLAS:
+            k3 = launches["mont_mul"]
+        want = native_msm.msm_packed(cv, scalars, gens.packed_G(),
+                                     handle=gens.native_basis())
+        require(got == want, f"pippenger {cv.name}: device != native host")
+        require(launches["mont_mul"] > 0, f"pippenger {cv.name}: K3 never "
+                f"launched ({launches})")
+        require(limb.mul is plain_mul, "pippenger: the field-kernel hook "
+                "outlived msm_device")
+        res[cv.name] = {"n": n, "s": secs, "pts_per_s": n / secs,
+                        "basis_upload_s": upload_s,
+                        "k3_launches": launches["mont_mul"]}
+    emit("pippenger", t0, chunk=mp.chunk_cap(), **res)
+    return k3
+
+
+def phase_mxu(torch, dev) -> int:
+    """The MXU-formulated Poseidon under field_kernel.enabled(redc=True)
+    against K5 on the same states; returns K4's launches in a 2^14
+    batch."""
+    from reef_tpu_torch.models.prover_step import random_elems
+    from reef_tpu_torch.ops import field_kernel as FK
+    from reef_tpu_torch.ops import limb, poseidon_device, poseidon_mxu
+    from reef_tpu_torch.utils import cudabuild
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cpu").manual_seed(10)
+    plain = limb.mul, limb.redc_cols
+
+    def states(t, B):
+        return random_elems((t, B), g, dev).permute(1, 0, 2).contiguous()
+
+    def mxu(lf, X):
+        with FK.enabled(redc=True), no_plain_products_on_card("mxu"):
+            return poseidon_mxu.permute(lf, X)
+
+    res, k4 = {}, None
+    for B in MXU_B:
+        lf = limb.FQ
+        X = states(5, B)
+        torch.cuda.synchronize()
+        cudabuild.reset_counts()
+        got = mxu(lf, X)
+        torch.cuda.synchronize()
+        launches = cudabuild.launch_counts()
+        require(launches["mont_mul"] > 0 and launches["mont_redc"] > 0,
+                f"mxu B={B}: K3 or K4 never launched ({launches})")
+        if B == MXU_B[0]:
+            k4 = launches["mont_redc"]
+        err = max_err(got, poseidon_device.permute(lf, X))
+        require(err == 0, f"mxu t=5 B={B}: != K5 (max {err})")
+        ms = cuda_ms(torch, lambda: mxu(lf, X), reps=3)
+        k5_ms = cuda_ms(torch, lambda: poseidon_device.permute(lf, X),
+                        reps=3)
+        res[f"t5_b{B}"] = {"ms": ms, "perms_per_s": B / ms * 1e3,
+                           "k5_ms": k5_ms,
+                           "k5_perms_per_s": B / k5_ms * 1e3,
+                           "k3_launches": launches["mont_mul"],
+                           "k4_launches": launches["mont_redc"]}
+    for lf in (limb.FQ, limb.FP):
+        for t in (9, 5):
+            Y = states(t, MXU_T9_B)
+            err = max_err(mxu(lf, Y), poseidon_device.permute(lf, Y))
+            require(err == 0, f"mxu t={t} {lf.name}: != K5 (max {err})")
+    require((limb.mul, limb.redc_cols) == plain,
+            "mxu: the field-kernel hook outlived its block")
+    emit("mxu", t0, t9_states=MXU_T9_B, **res)
+    return k4
+
+
+def phase_msm_aux(torch, dev, rnd) -> None:
+    """The binary msm_device and msm_pallas, both with their point adds
+    on K1, against the native host MSM; both are off-path."""
+    from reef_tpu_torch.backend.commitment import PedersenGens
+    from reef_tpu_torch.ec import msm, native_msm
+    from reef_tpu_torch.ec.padd import msm_pallas
+    from reef_tpu_torch.utils import cudabuild
+    t0 = time.perf_counter()
+    ck = msm.pallas_kernels()
+    cv = ck.curve
+    res = {}
+    for name, n in (("binary", AUX_BINARY_N), ("pallas", AUX_PALLAS_N)):
+        gens = PedersenGens(cv, b"chip_smoke/msm_aux", n)
+        scalars = [rnd.randrange(cv.order) for _ in range(n)]
+        torch.cuda.synchronize()
+        cudabuild.reset_counts()
+        t1 = time.perf_counter()
+        if name == "binary":
+            acc = msm.msm_device(ck, scalars, ck.to_plain(gens.G, dev))
+            got = ck.plain_to_affine(acc[..., None])[0]
+        else:
+            got = ck.to_affine(msm_pallas(ck, scalars, gens.G, device=dev))
+        secs = time.perf_counter() - t1
+        k1 = cudabuild.launch_counts()["padd"]
+        want = native_msm.msm_packed(cv, scalars, gens.packed_G(),
+                                     handle=gens.native_basis())
+        require(got == want, f"msm_aux {name}: device != native host MSM")
+        require(k1 > 0, f"msm_aux {name}: K1 never launched")
+        res[name] = {"n": n, "s": secs, "k1_launches": k1}
+    emit("msm_aux", t0, **res)
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -552,6 +839,12 @@ def main() -> int:
     phase_merkle(torch, dev)
     phase_step(torch, dev)
 
+    # ---- field (K3, K4), pippenger, mxu, msm_aux --------------------------
+    kernels.update(phase_field(torch, dev))
+    off_path = {"mont_mul": phase_pippenger(torch, dev, rnd),
+                "mont_redc": phase_mxu(torch, dev)}
+    phase_msm_aux(torch, dev, rnd)
+
     # ---- e2e: the main path ----------------------------------------------
     t0 = time.perf_counter()
     from reef_tpu_torch import cli
@@ -640,7 +933,7 @@ def main() -> int:
         sumcheck_device.device_sumcheck_rounds = orig_sc
         witness.nlookup_prove = orig_nl
         shutil.rmtree(work, ignore_errors=True)
-    require(all(v > 0 for v in launches.values()),
+    require(all(launches[k] > 0 for k in E2E_KERNELS),
             f"e2e: a kernel of the main path never launched: {launches}")
     # the document table: size + EOF + EPSILON entries, padded to 2^ell
     doc_ell = (size + 1).bit_length()
@@ -657,7 +950,7 @@ def main() -> int:
          warm_wall_s=warm_wall, warm_host_routes_wall_s=host_wall)
 
     for name, k in kernels.items():
-        k["launches"] = launches[name]
+        k["launches"] = off_path.get(name, launches[name])
     table = [{**{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},

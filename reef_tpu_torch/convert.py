@@ -56,6 +56,22 @@ def plain_to_reference(t: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(a.astype(np.uint32))
 
 
+def points_from_reference(arr) -> torch.Tensor:
+    """(n, 3, 16) uint32 projective Montgomery points -> the plain layout
+    the port's point adds take, (3, 16, n) int64."""
+    a = np.asarray(arr)
+    if a.ndim != 3 or a.shape[1:] != (3, limb.N):
+        raise ValueError(f"shape {a.shape}: expected (n, 3, {limb.N})")
+    return torch.from_numpy(np.ascontiguousarray(
+        np.transpose(a.astype(np.int64), (1, 2, 0))))
+
+
+def points_to_reference(t: torch.Tensor) -> np.ndarray:
+    """Inverse of `points_from_reference`."""
+    a = np.transpose(t.detach().cpu().numpy(), (2, 0, 1))
+    return np.ascontiguousarray(a.astype(np.uint32))
+
+
 def rows_from_reference(arr) -> torch.Tensor:
     """(..., n, 16) uint32 Montgomery limbs -> the kernel layout,
     (..., 8, n) int32: a table (n, 16) becomes (8, n), a split-halved

@@ -82,6 +82,21 @@ class CurveKernels:
                 out.append((x * zi % p, y * zi % p))
         return out[0] if single else out
 
+    def ident16(self, device) -> torch.Tensor:
+        """The identity as a (3, 16) int64 plain-layout point."""
+        return limb.split32(self.ident_t(device).T).T.contiguous()
+
+    def to_plain(self, pts: List[Point], device="cpu") -> torch.Tensor:
+        """Affine host points -> (3, 16, n) int64 plain-layout projective
+        points on `device`."""
+        w = torch.from_numpy(self.to_proj(pts)).permute(2, 1, 0)  # (8, 3, n)
+        return limb.split32(w).transpose(0, 1).contiguous().to(device)
+
+    def plain_to_affine(self, P: torch.Tensor) -> List[Point]:
+        """(3, 16, n) plain-layout points -> affine points."""
+        w = limb.join16(P.transpose(0, 1))                    # (8, 3, n)
+        return self.to_affine(w.permute(2, 1, 0))
+
 
 def _field_ops(ck: CurveKernels):
     """mul / add / sub of the curve's base field on (16, G, ...) stacks."""
@@ -150,6 +165,75 @@ def padd_affine(ck: CurveKernels, A: torch.Tensor,
     X3 = sub(q[1], q[0])
     Y3, Z3 = add(_stack(q[3], q[5]), _stack(q[2], q[4])).unbind(1)
     return torch.stack([X3, Y3, Z3])
+
+
+def scalar_bits(scalars: List[int], nbits: int) -> np.ndarray:
+    """(nbits, n) bool, row j the bit nbits-1-j of each scalar (MSB
+    first); the scalars are reduced, below 2^256."""
+    raw = b"".join(int(s).to_bytes(32, "big") for s in scalars)
+    bits = np.unpackbits(np.frombuffer(raw, np.uint8).reshape(-1, 32), axis=1)
+    return np.ascontiguousarray(bits[:, 256 - nbits:].T.astype(bool))
+
+
+def select_point(mask: torch.Tensor, P: torch.Tensor,
+                 Q: torch.Tensor) -> torch.Tensor:
+    """mask (...) bool: P where mask, else Q, on (3, 16, ...) points."""
+    return torch.where(mask, P, Q)
+
+
+def _point_add(ck: CurveKernels, device: torch.device):
+    """The binary MSM's add of (3, 16, m) points: K1 (`padd.padd_soa`, on
+    its (3, 8, m) int32 layout) on a CUDA device, the plain `padd` on
+    the CPU."""
+    if device.type == "cpu":
+        return lambda P, Q: padd(ck, P, Q)
+    from .padd import limb_join, limb_split, padd_soa   # imports this module
+    return lambda P, Q: limb_split(padd_soa(ck, limb_join(P), limb_join(Q)))
+
+
+def tree_reduce(ck: CurveKernels, pts: torch.Tensor) -> torch.Tensor:
+    """(3, 16, n) -> (3, 16) sum by halving vector adds (n a power of 2)."""
+    add = _point_add(ck, pts.device)
+    n = pts.shape[-1]
+    while n > 1:
+        half = n // 2
+        pts = add(pts[..., :half], pts[..., half:2 * half])
+        n = half
+    return pts[..., 0]
+
+
+def msm_device(ck: CurveKernels, scalars: List[int], points,
+               device=None) -> torch.Tensor:
+    """The binary MSM: for each scalar bit, MSB first, double the
+    accumulator and add the tree-reduced sum of the points whose bit is
+    set (255 rounds of log2(n) + 2 point adds, each K1 on the card).
+    `points` is a list of affine host points, or (3, 16, n) plain-layout
+    points, which fix the device; a list goes to `device` (default: the
+    engine device).  Returns the projective (3, 16) sum."""
+    if isinstance(points, list):
+        from ..utils.device import resolve
+        points = ck.to_plain(points, resolve(device))
+    n = len(scalars)
+    if points.shape != (3, limb.N, n):
+        raise ValueError(f"points: shape {tuple(points.shape)}, expected "
+                         f"(3, {limb.N}, {n})")
+    dev = points.device
+    ident = ck.ident16(dev)
+    n2 = 1 << max(0, n - 1).bit_length() if n > 1 else 1
+    if n2 != n:
+        pad = ident[:, :, None].expand(3, limb.N, n2 - n)
+        points = torch.cat([points, pad], dim=2)
+    order = ck.curve.order
+    bits = scalar_bits([int(s) % order for s in scalars] + [0] * (n2 - n),
+                       order.bit_length())
+    bits = torch.from_numpy(bits).to(dev)
+    ident_n = ident[:, :, None].expand(3, limb.N, n2)
+    add = _point_add(ck, dev)
+    acc = ident[:, :, None]
+    for row in bits:
+        tree = tree_reduce(ck, select_point(row, points, ident_n))
+        acc = add(add(acc, acc), tree[..., None])
+    return acc[..., 0]
 
 
 _KERNELS = {}

@@ -4,6 +4,7 @@
 ec/pallas_ec.py: one RCB16 a = 0 complete addition per lane.  On a CUDA
 tensor it launches the hand-written kernel in csrc/padd.cu; on a CPU
 tensor it runs `padd_soa_plain`, the same arithmetic in plain torch.
+`msm_pallas` is the port of the same module's MSM over that kernel.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import torch
 
 from ..ops import limb
 from ..utils import cudabuild
-from .msm import CurveKernels, padd
+from .msm import CurveKernels, padd, scalar_bits
 
 
 def _check_points(name: str, t: torch.Tensor, coords: int) -> None:
@@ -62,3 +63,65 @@ def padd_soa(ck: CurveKernels, P: torch.Tensor,
         cudabuild.check(err, "reef_padd")
         cudabuild.count("padd")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the lane-parallel double-and-add MSM over K1
+# ---------------------------------------------------------------------------
+
+BLOCK = 1024    # lanes a group runs together (the reference's kernel block)
+
+
+def _ident_soa(ck: CurveKernels, n: int, device) -> torch.Tensor:
+    return ck.ident_t(device)[:, :, None].expand(3, limb.N32, n).contiguous()
+
+
+def _group_products(ck: CurveKernels, bits: torch.Tensor,
+                    pts: torch.Tensor) -> torch.Tensor:
+    """Double-and-add for ONE group of BLOCK lanes: bits (nbits, BLOCK)
+    bool, pts (3, 8, BLOCK).  Every lane runs its own scalar product with
+    two `padd_soa` calls a bit; a halving tree then sums the lanes.
+    Returns (3, 8, 1)."""
+    ident = _ident_soa(ck, pts.shape[2], pts.device)
+    acc = ident
+    for row in bits:
+        acc = padd_soa(ck, padd_soa(ck, acc, acc),
+                       torch.where(row, pts, ident))
+    n = acc.shape[2]
+    while n > 1:
+        half = n // 2
+        acc = padd_soa(ck, acc[..., :half].contiguous(),
+                       acc[..., half:2 * half].contiguous())
+        n = half
+    return acc
+
+
+def msm_pallas(ck: CurveKernels, scalars, points, device=None
+               ) -> torch.Tensor:
+    """MSM over K1 in groups of BLOCK lanes; `points` is a list of affine
+    host points (uploaded to `device`, default the engine device) or an
+    (n, 3, 8) int32 projective tensor, whose device it keeps.  Returns the
+    projective (3, 8) int32 sum.  The bit count is cut to the longest
+    scalar: leading zero bits would only double the identity."""
+    if isinstance(points, list):
+        from ..utils.device import resolve
+        points = torch.from_numpy(ck.to_proj(points)).to(resolve(device))
+    n = len(scalars)
+    if tuple(points.shape) != (n, 3, limb.N32):
+        raise ValueError(f"points: shape {tuple(points.shape)}, expected "
+                         f"({n}, 3, {limb.N32})")
+    dev = points.device
+    n2 = -(-n // BLOCK) * BLOCK
+    pts = points.permute(1, 2, 0).contiguous()        # (3, 8, n)
+    if n2 != n:
+        pts = torch.cat([pts, _ident_soa(ck, n2 - n, dev)], dim=2)
+    order = ck.curve.order
+    scalars = [int(s) % order for s in scalars] + [0] * (n2 - n)
+    nbits = max(1, max(s.bit_length() for s in scalars))
+    bits = torch.from_numpy(scalar_bits(scalars, nbits)).to(dev)
+    acc = None
+    for g in range(n2 // BLOCK):
+        sl = slice(g * BLOCK, (g + 1) * BLOCK)
+        prod = _group_products(ck, bits[:, sl], pts[..., sl].contiguous())
+        acc = prod if acc is None else padd_soa(ck, acc, prod)
+    return acc[..., 0]

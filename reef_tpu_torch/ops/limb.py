@@ -216,14 +216,22 @@ def mul(f: LimbField, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def redc_cols(f: LimbField, cols: torch.Tensor) -> torch.Tensor:
-    """Montgomery-reduce (32, ...) non-negative column sums of a value
-    below p*R (columns below ~2^40) to a canonical (16, ...) element:
-    16 REDC rounds with n0inv, a carry pass and one conditional
-    subtract."""
-    return _redc_inplace(f, cols.clone())
+    """Montgomery-reduce (32, ...) non-negative column sums to a canonical
+    (16, ...) element: 16 REDC rounds with n0inv, a carry pass and two
+    conditional subtracts, as the JAX package's `limb.redc_cols`.
+
+    The reference's contract: columns below 2^31 whose value is below
+    ~5p^2, which the MXU Poseidon's byte matmul produces (ops/poseidon_mxu).
+    Such a value can exceed p*R, so the REDC leaves up to ~2.3p and takes
+    two subtracts.  Exact here also for a product's schoolbook columns
+    (below ~2^40): the columns are int64."""
+    return _redc_inplace(f, cols.clone(), subtracts=2)
 
 
-def _redc_inplace(f: LimbField, cols: torch.Tensor) -> torch.Tensor:
+def _redc_inplace(f: LimbField, cols: torch.Tensor,
+                  subtracts: int = 1) -> torch.Tensor:
+    """The REDC of `redc_cols` in place; one subtract suffices below p*R
+    (a product of two values below p, as in `mul`)."""
     p = f.const("p", cols[:N])
     m = torch.empty_like(cols[0])
     for i in range(N):
@@ -232,7 +240,10 @@ def _redc_inplace(f: LimbField, cols: torch.Tensor) -> torch.Tensor:
         cols[i:i + N].addcmul_(p, m)
         torch.bitwise_right_shift(cols[i], BITS, out=m)
         cols[i + 1].add_(m)
-    return cond_sub_p(f, _carry_(cols[N:]))
+    out = _carry_(cols[N:])
+    for _ in range(subtracts):
+        out = cond_sub_p(f, out)
+    return out
 
 
 def sqr(f: LimbField, a: torch.Tensor) -> torch.Tensor:

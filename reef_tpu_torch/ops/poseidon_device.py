@@ -68,9 +68,9 @@ def _mds_plain(lf: LimbField, s: torch.Tensor,
         cols[a:a + limb.N] += (mds * s[a][None, None]).sum(dim=2)
     out = limb.redc_cols(lf, cols)
     # a sum of t products of values below p is below t p^2, so the REDC
-    # result is below (t p / 2^256 + 1) p < (t / 4 + 1.01) p: the REDC's
-    # own subtract leaves it below (t / 4 + 0.01) p
-    for _ in range(t // 4):
+    # result is below (t p / 2^256 + 1) p < (t / 4 + 1.01) p: redc_cols'
+    # two subtracts leave it below (t / 4 - 0.99) p
+    for _ in range(t // 4 - 1):
         out = limb.cond_sub_p(lf, out)
     return out
 

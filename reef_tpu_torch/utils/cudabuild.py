@@ -47,11 +47,14 @@ LIBS = {
         "reef_sc_coeffs": [P, P, P, P, L, L, L, I, I, P, P, P, P, I, I, P],
         "reef_sc_fold": [P, P, P, P, L, L, P, L, P, P, L, I, P],
         "reef_sc_eq_step": [P, L, P, L, P, P, I, P]}),
+    "mont": ("mont.cu", {"reef_mont_mul": [P, P, P, L, I, P],
+                         "reef_mont_redc": [P, P, L, I, P]}),
 }
 
-# the kernels whose launches are counted (the K6 library has three)
+# the kernels whose launches are counted (the K6 library has three, the
+# K3/K4 library two)
 KERNELS = ("padd", "msm_tree", "poseidon", "sumcheck_coeffs",
-           "sumcheck_fold", "sumcheck_eq")
+           "sumcheck_fold", "sumcheck_eq", "mont_mul", "mont_redc")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _COUNTS: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -116,6 +116,46 @@ def test_redc_cols_matches_reference(name):
                                                    for v in values]
 
 
+def mxu_range_cols(p: int, n: int, seed: int) -> np.ndarray:
+    """(32, n) int64 columns, each below 2^31, of n values in [pR, 5p^2):
+    the range of the MXU Poseidon's byte-matmul accumulations, where a
+    REDC leaves up to ~2.3p.  Each value's 16-bit limbs, with random
+    amounts moved one column down (column k-1 gains 2^16 x what column k
+    loses), so the columns exceed 16 bits as the matmul's do."""
+    rng = np.random.default_rng(seed)
+    lo, hi = p << 256, 5 * p * p
+    out = np.zeros((32, n), np.int64)
+    for j in range(n):
+        v = lo + int.from_bytes(rng.bytes(64), "little") % (hi - lo)
+        c = [(v >> (16 * k)) & 0xFFFF for k in range(32)]
+        for k in range(31, 0, -1):
+            r = int(rng.integers(0, min(c[k], 1 << 14) + 1))
+            c[k] -= r
+            c[k - 1] += r << 16
+        assert sum(x << (16 * k) for k, x in enumerate(c)) == v
+        out[:, j] = c
+    assert out.max() < 1 << 31
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(FIELDS))
+def test_redc_cols_mxu_range_matches_reference(name):
+    """Values in [pR, 5p^2) as 32 columns below 2^31: the REDC leaves up
+    to ~2.3p, so it takes two conditional subtracts to be canonical, as
+    the reference's `redc_cols` does."""
+    lf, rf = FIELDS[name]
+    p = lf.p_int
+    cols = mxu_range_cols(p, 64, {"fp": 21, "fq": 22}[name])
+    got = limb.redc_cols(lf, torch.from_numpy(cols))
+    want = _ref_redc(rf, jnp.asarray(cols.T.astype(np.uint32)))
+    np.testing.assert_array_equal(_to_ref(lf, got), np.asarray(want))
+    rinv = pow(1 << 256, -1, p)
+    values = [sum(int(cols[k, j]) << (16 * k) for k in range(32))
+              for j in range(cols.shape[1])]
+    raw = limb._words_to_ints(got.numpy().T, 16)
+    assert raw == [v * rinv % p for v in values]
+
+
 def test_limb_conversion_roundtrip():
     rng = np.random.default_rng(6)
     a16 = rng.integers(0, 1 << 16, size=(5, 16, 7), dtype=np.uint32)
