@@ -12,21 +12,26 @@ script exits non-zero and prints no result:
   padd    K1 (csrc/padd.cu) against its plain version at B = 2^16 random
           points on both curves, with the identity, P+P and P+(-P) lanes;
           exact
-  tree    K2 (csrc/msm_tree.cu) against its plain version at cap = 16384,
-          all 32 windows; exact on every node, spot-checked on affine
-          points against the python curve
+  tree    K2 (csrc/msm_tree.cu) against its plain version at cap = 4096
+          and 16384 on both curves and 65536 on Pallas, all 32 windows;
+          exact on every node, spot-checked on affine points against the
+          python curve at 16384; the time of each level's launch
   msm     msm_device_v3 at n = 2^16 on Pallas and Vesta against the native
           host MSM, msm_device_v3_rows at R = 4, n = 4096; exact.  Times
           with CUDA events, and one chunk of the plain pipeline on the
           card (a check of the algorithm, no yardstick of speed)
   poseidon  K5 (csrc/poseidon.cu) at t = 5, B = 2^19 (the 1 MB document's
           Merkle leaves) against its plain version on a 4,096-state
-          sample plus the last state, and at t = 9, B = 1 (a sumcheck
-          round's sponge) and B = 37 on both fields; exact, and a few
-          states against the python host permutation
-  sumcheck  a full device nlookup_prove on a 2^16 table against the host
-          route (exact transcript); K6 (csrc/sumcheck.cu: coefficients,
-          fold, eq step) against the plain versions at half = 2^19
+          sample plus the last state; both of its launches (a thread per
+          state, a block per state) at t = 5 and 9 on both fields at
+          B = 1, 2, 37 and the crossover -1, 0, +1 against the plain
+          version and a few states against the python host permutation;
+          exact.  The sweep of both launches' times over B = 2^0..2^15
+          that set the crossover (poseidon_kernel.THREAD_MIN_B)
+  sumcheck  a full device nlookup_prove on 2^14 and 2^16 tables against
+          the host route (exact transcript, both routes timed); K6
+          (csrc/sumcheck.cu: coefficients, fold, eq step) against the
+          plain versions at half = 2^19
   merkle  build_tree_device of the 1 MB DNA document (2^19 leaves, one K5
           launch per level), timed; a 64 Ki-entry document's root equal
           to the host MerkleCommitment
@@ -55,8 +60,9 @@ script exits non-zero and prints no result:
           reference's dna.sh workload (seed 42); must prove and verify,
           and every kernel of its path (K1, K2, K5, K6; K3 and K4 report
           the launches of their own phases) must have launched (the
-          2^20-entry document
-          sumcheck runs on the card: K5 once a round).  The device MSMs
+          2^20-entry document sumcheck runs on the card: K5's
+          block-per-state launch once a round, counted apart as
+          `poseidon_spread`).  The device MSMs
           and the device sumcheck are timed; then the same run is timed
           again in the warm process, with both routes on the host
           (REEF_DEVICE_MSM=0, REEF_DEVICE_SUMCHECK=0) and on the card
@@ -102,12 +108,15 @@ DNA_MOTIF = "ATGGGCTACAGAAACCGTGCCAAA"
 # can shrink them)
 PADD_LANES = 1 << 16
 TREE_CAP = 16384
+TREE_CHECK = {"pallas": (4096, 16384, 65536), "vesta": (4096, 16384)}
 MSM_N = 1 << 16
 ROWS, ROW_N = 4, 4096
 DNA_BYTES = 1_000_000
 POSEIDON_B = 1 << 19
+POSEIDON_CHECK_B = (1, 2, 37)
+POSEIDON_SWEEP_LOG = 15
 SAMPLE = 4096
-SUMCHECK_N = 1 << 16
+SUMCHECK_N = (1 << 14, 1 << 16)
 KERNEL_HALF = 1 << 19
 MERKLE_CHECK_N = 1 << 16
 STEP_B, STEP_HALF = 1 << 19, 1 << 19
@@ -117,8 +126,8 @@ MXU_B = (1 << 14, 1 << 19)
 MXU_T9_B = 4096
 AUX_BINARY_N, AUX_PALLAS_N = 256, 2048
 # the e2e's kernels: K1, K2, K5 and K6 (K3 and K4 run off its path)
-E2E_KERNELS = ("padd", "msm_tree", "poseidon", "sumcheck_coeffs",
-               "sumcheck_fold", "sumcheck_eq")
+E2E_KERNELS = ("padd", "msm_tree", "poseidon", "poseidon_spread",
+               "sumcheck_coeffs", "sumcheck_fold", "sumcheck_eq")
 # a Montgomery reduction alone: 8 rounds of one 8-limb multiply-add chain
 # pair (lo and hi) plus one m = t0*n0
 MADS_PER_REDC = 8 * (2 * 8 + 1)
@@ -190,10 +199,98 @@ def sample_idx(torch, B: int, g, dev):
                       torch.tensor([B - 1])]).to(dev)
 
 
+def tree_split(torch, ck, placed, reps: int):
+    """Mean ms of K2's launch for each level, one host call a level with
+    CUDA events between them."""
+    from reef_tpu_torch.ec import msm_v3
+    out = torch.empty((3,) + tuple(placed.shape[1:]), dtype=torch.int32,
+                      device=placed.device)
+    plan = msm_v3.tree_plan(placed.shape[3])
+    for lvl in plan:
+        msm_v3.tree_launch(ck, placed, out, [lvl])
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(plan) + 1)]
+    tot = [0.0] * len(plan)
+    for _ in range(reps):
+        ev[0].record()
+        for i, lvl in enumerate(plan):
+            msm_v3.tree_launch(ck, placed, out, [lvl])
+            ev[i + 1].record()
+        ev[-1].synchronize()
+        for i in range(len(plan)):
+            tot[i] += ev[i].elapsed_time(ev[i + 1])
+    return [x / reps for x in tot]
+
+
+def phase_tree(torch, dev, curves) -> dict:
+    """K2 against its plain version at every cap of TREE_CHECK on its
+    curves, all 32 windows, exact on every node; at TREE_CAP spot-checked
+    on affine points against the python curve, and timed: a call and
+    each level's launch.  Returns its kernel-table row."""
+    from reef_tpu_torch.backend.commitment import PedersenGens
+    from reef_tpu_torch.ec import msm_v3
+    t0 = time.perf_counter()
+    W = msm_v3.N_WINDOWS
+    g = torch.Generator(device="cpu").manual_seed(7)
+    res, errs = {}, []
+    for ck in curves:
+        cv = ck.curve
+        gens = PedersenGens(cv, b"chip_smoke/msm", MSM_N).G
+        for cap in TREE_CHECK[cv.name]:
+            base = points_of(ck, gens[:cap], dev, torch)    # (3, 8, cap)
+            order = torch.stack([torch.randperm(cap, generator=g)
+                                 for _ in range(W)]).to(dev)  # (W, cap)
+            placed = base[:2][:, :, order].contiguous()     # (2, 8, W, cap)
+            got = msm_v3.tree_levels(ck, placed)
+            want = msm_v3.tree_levels_plain(ck, placed)
+            torch.cuda.synchronize()
+            errs.append(max_err(got[..., :cap - 1], want[..., :cap - 1]))
+            require(errs[-1] == 0, f"tree {cv.name} cap={cap}: kernel != "
+                    f"plain (max {errs[-1]})")
+            if cap != TREE_CAP:
+                continue
+            # affine spot checks: level-1 node 0 and the root of windows 0
+            # and W-1
+            offs = msm_v3.level_offsets(cap)
+            for w in (0, W - 1):
+                idx = order[w].tolist()
+                node = ck.to_affine(got[:, :, w, 0].cpu())
+                require(node == cv.add(gens[idx[0]], gens[idx[1]]),
+                        f"tree {cv.name}: level-1 node disagrees")
+                root = ck.to_affine(got[:, :, w, offs[-1]].cpu())
+                total = None
+                for i in idx:
+                    total = cv.add(total, gens[i])
+                require(root == total, f"tree {cv.name}: root disagrees")
+            ms = cuda_ms(torch, lambda: msm_v3.tree_levels(ck, placed),
+                         reps=10)
+            plain_ms = cuda_ms(torch, lambda: msm_v3.tree_levels_plain(
+                ck, placed), reps=1)
+            res[cv.name] = {"ms": ms, "plain_ms": plain_ms,
+                            "level_ms": tree_split(torch, ck, placed,
+                                                   reps=10)}
+    emit("tree", t0, cap=TREE_CAP, checked_caps=TREE_CHECK, windows=W, **res)
+    cap = TREE_CAP
+    n_aff, n_full = W * cap // 2, W * (cap // 2 - 1)
+    bms, by = bound_ms(W * cap * 2 * 32 + W * (cap - 1) * 96,
+                       (n_aff * MULS_PER_AFFINE_ADD + n_full * MULS_PER_PADD)
+                       * MADS_PER_MUL)
+    pallas = res["pallas"]
+    return {
+        "name": "msm_tree", "route": "cuda",
+        "source": "reef_tpu_torch/csrc/msm_tree.cu",
+        "replaces": "reef_tpu/ec/msm_v3.py:182",
+        "max_abs_err": max(errs), "ms": pallas["ms"],
+        "plain_ms": pallas["plain_ms"], "bound_ms": bms, "bound_by": by,
+        "library_ms": None,
+        "shape": f"(2, 8, {W}, {cap}) -> (3, 8, {W}, {cap}) int32, Pallas"}
+
+
 def phase_poseidon(torch, dev) -> dict:
-    """K5 against its plain version; returns its kernel-table row."""
+    """K5's two launches against the plain version; returns its
+    kernel-table row."""
     from reef_tpu_torch.models.prover_step import random_elems
     from reef_tpu_torch.ops import limb, poseidon_device
+    from reef_tpu_torch.ops import poseidon_kernel as PK
     from reef_tpu_torch.ops.poseidon_constants import host_permutation
     permute, plain = poseidon_device.permute, poseidon_device.permute_plain
     t0 = time.perf_counter()
@@ -220,34 +317,54 @@ def phase_poseidon(torch, dev) -> dict:
     host_check(lf, X, got, (0, B - 1))
     ms5 = cuda_ms(torch, lambda: permute(lf, X), reps=5)
     plain5 = cuda_ms(torch, lambda: plain(lf, Xs), reps=1)
+    # both launches at every B of POSEIDON_CHECK_B and around the
+    # crossover, against one plain run over all those states
     errs = [err]
     for f in (limb.FQ, limb.FP):
-        for Bs in (1, 37):
-            Y = states(9, Bs)
-            got = permute(f, Y)
-            errs.append(max_err(got, plain(f, Y)))
-            require(errs[-1] == 0, f"poseidon t=9 {f.name} B={Bs}: "
-                    f"kernel != plain (max {errs[-1]})")
-            host_check(f, Y, got, (0,))
-        Y = states(5, 37)
-        errs.append(max_err(permute(f, Y), plain(f, Y)))
-        require(errs[-1] == 0, f"poseidon t=5 {f.name} B=37: kernel != plain")
+        for t in (5, 9):
+            cross = PK.THREAD_MIN_B
+            sizes = sorted(set(POSEIDON_CHECK_B) | {cross - 1, cross,
+                                                    cross + 1})
+            Ys = [states(t, Bs) for Bs in sizes]
+            want = plain(f, torch.cat(Ys, dim=2))
+            for path in (PK.THREAD, PK.SPREAD):
+                gots = torch.cat([PK.launch(f, Y, path) for Y in Ys], dim=2)
+                errs.append(max_err(gots, want))
+                require(errs[-1] == 0, f"poseidon t={t} {f.name} path "
+                        f"{path}: kernel != plain (max {errs[-1]})")
+            host_check(f, Ys[0], PK.launch(f, Ys[0], PK.SPREAD), (0,))
+            host_check(f, Ys[-1], PK.launch(f, Ys[-1], PK.THREAD),
+                       (sizes[-1] - 1,))
+    # the sweep that set THREAD_MIN_B: both launches on Fq at B = 2^k
+    sweep = {}
+    for t in (5, 9):
+        for k in range(POSEIDON_SWEEP_LOG + 1):
+            Y = states(t, 1 << k)
+            sweep[f"t{t}_b{1 << k}"] = [
+                cuda_ms(torch, lambda: PK.launch(lf, Y, path),
+                        reps=max(3, 20 >> k))
+                for path in (PK.THREAD, PK.SPREAD)]
     Y1 = states(9, 1)
-    ms9 = cuda_ms(torch, lambda: permute(lf, Y1), reps=20)
+    ms9 = cuda_ms(torch, lambda: permute(lf, Y1), reps=50)
+    thread9 = cuda_ms(torch, lambda: PK.launch(lf, Y1, PK.THREAD), reps=10)
     plain9 = cuda_ms(torch, lambda: plain(lf, Y1), reps=1)
     bms5, by5 = bound_ms(2 * 5 * 32 * B, B * poseidon_muls(5) * MADS_PER_MUL)
     bms9, by9 = bound_ms(2 * 9 * 32, poseidon_muls(9) * MADS_PER_MUL)
     emit("poseidon", t0, t5_states=B, t5_ms=ms5, t5_bound_ms=bms5,
          t5_plain_ms_on_sample=plain5, sample=SAMPLE, t9_b1_ms=ms9,
-         t9_b1_bound_ms=bms9, t9_b1_plain_ms=plain9,
-         t5_states_per_s=B / ms5 * 1e3)
+         t9_b1_thread_ms=thread9, t9_b1_bound_ms=bms9,
+         t9_b1_plain_ms=plain9, t5_states_per_s=B / ms5 * 1e3,
+         thread_min_b=PK.THREAD_MIN_B,
+         sweep_ms_thread_spread=sweep)
     return {
         "name": "poseidon", "route": "cuda",
         "source": "reef_tpu_torch/csrc/poseidon.cu",
         "replaces": "reef_tpu/ops/poseidon_pallas.py:185",
         "max_abs_err": max(errs), "ms": ms9, "plain_ms": plain9,
         "bound_ms": bms9, "bound_by": by9, "library_ms": None,
-        "shape": "(9, 8, 1) int32, Fq: a sumcheck round's sponge",
+        "shape": "(9, 8, 1) int32, Fq: a sumcheck round's sponge (the "
+                 "SPREAD launch)",
+        "t9_b1_thread_ms": thread9,
         "t5_b2e19_ms": ms5, "t5_b2e19_bound_ms": bms5,
         "t5_b2e19_bound_by": by5, "t5_plain_ms_on_4096": plain5}
 
@@ -262,25 +379,30 @@ def phase_sumcheck(torch, dev, rnd) -> dict:
     from reef_tpu_torch.ops import sumcheck_kernel as K
     from reef_tpu_torch.ops.sumcheck_device import DeviceTableCache
     t0 = time.perf_counter()
-    f, lf, n = F.FQ, limb.FQ, SUMCHECK_N
-    table = [rnd.randrange(4) for _ in range(n)]
-    qs = [rnd.randrange(n) for _ in range(64)]
-    qs[5] = qs[2]
-    vs = [table[q] for q in qs]
-    ell = n.bit_length() - 1
-    prev_q = [rnd.randrange(f.p) for _ in range(ell)]
-    prev_v = SC.verifier_mle_eval(f, table, prev_q)
-    args = (f, table, qs, vs, prev_q, prev_v, "nldoc", 12345)
-    t1 = time.perf_counter()
-    host = SC.nlookup_prove(*args)
-    host_s = time.perf_counter() - t1
-    cache = DeviceTableCache(lf, table, device=dev)
-    secs = []
-    for _ in range(2):
+    f, lf = F.FQ, limb.FQ
+    routes = {}
+    for n in SUMCHECK_N:
+        table = [rnd.randrange(4) for _ in range(n)]
+        qs = [rnd.randrange(n) for _ in range(64)]
+        qs[5] = qs[2]
+        vs = [table[q] for q in qs]
+        ell = n.bit_length() - 1
+        prev_q = [rnd.randrange(f.p) for _ in range(ell)]
+        prev_v = SC.verifier_mle_eval(f, table, prev_q)
+        args = (f, table, qs, vs, prev_q, prev_v, "nldoc", 12345)
         t1 = time.perf_counter()
-        got = SC.nlookup_prove(*args, device_cache=cache)  # ends in a copy
-        secs.append(time.perf_counter() - t1)
-        require(got == host, "sumcheck: device transcript != host route")
+        host = SC.nlookup_prove(*args)
+        host_s = time.perf_counter() - t1
+        cache = DeviceTableCache(lf, table, device=dev)
+        secs = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            got = SC.nlookup_prove(*args, device_cache=cache)  # ends in a copy
+            secs.append(time.perf_counter() - t1)
+            require(got == host, f"sumcheck 2^{ell}: device transcript != "
+                    f"host route")
+        routes[f"table_2e{ell}"] = {"rounds": ell, "host_route_s": host_s,
+                                    "device_route_s": secs}
 
     g = torch.Generator(device="cpu").manual_seed(6)
     half = KERNEL_HALF
@@ -321,8 +443,7 @@ def phase_sumcheck(torch, dev, rnd) -> dict:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": None,
             "shape": f"(8, {2 * half}) int32 tables, half = {half}"}
-    emit("sumcheck", t0, table=n, rounds=ell, host_route_s=host_s,
-         device_route_s=secs, half=half, **res)
+    emit("sumcheck", t0, **routes, half=half, **res)
     return rows
 
 
@@ -675,8 +796,10 @@ def main() -> int:
         built = cudabuild.build()
         for fut in native:
             fut.result()
-    ptxas = {name: [ln.strip() for ln in b["log"].splitlines()
-                    if "registers" in ln or "spill" in ln]
+    ptxas = {name: [ln.strip().replace("ptxas info    : ", "")
+                    for ln in b["log"].splitlines()
+                    if "registers" in ln or "spill" in ln
+                    or "Function properties for" in ln]
              for name, b in built.items()}
     emit("build", t0, nvcc_seconds={k: round(v["seconds"], 3)
                                     for k, v in built.items()},
@@ -737,52 +860,7 @@ def main() -> int:
         "shape": f"(3, 8, {B}) int32, Pallas"}
 
     # ---- tree (K2) -------------------------------------------------------
-    t0 = time.perf_counter()
-    cap, W = TREE_CAP, msm_v3.N_WINDOWS
-    res = {}
-    for ck in curves:
-        cv = ck.curve
-        gens = PedersenGens(cv, b"chip_smoke/tree", cap).G
-        base = points_of(ck, gens, dev, torch)              # (3, 8, cap)
-        g = torch.Generator(device="cpu").manual_seed(7)
-        order = torch.stack([torch.randperm(cap, generator=g)
-                             for _ in range(W)]).to(dev)    # (W, cap)
-        placed = base[:2][:, :, order].contiguous()         # (2, 8, W, cap)
-        got = msm_v3.tree_levels(ck, placed)
-        want = msm_v3.tree_levels_plain(ck, placed)
-        torch.cuda.synchronize()
-        err = int((got[..., :cap - 1].long()
-                   - want[..., :cap - 1].long()).abs().max())
-        require(err == 0, f"tree {cv.name}: kernel != plain (max {err})")
-        # affine spot checks: level-1 node 0 and the root of window 0 and W-1
-        offs = msm_v3.level_offsets(cap)
-        for w in (0, W - 1):
-            idx = order[w].tolist()
-            node = ck.to_affine(got[:, :, w, 0].cpu())
-            require(node == cv.add(gens[idx[0]], gens[idx[1]]),
-                    f"tree {cv.name}: level-1 node disagrees")
-            root = ck.to_affine(got[:, :, w, offs[-1]].cpu())
-            total = None
-            for i in idx:
-                total = cv.add(total, gens[i])
-            require(root == total, f"tree {cv.name}: root disagrees")
-        ms = cuda_ms(torch, lambda: msm_v3.tree_levels(ck, placed), reps=5)
-        plain_ms = cuda_ms(torch, lambda: msm_v3.tree_levels_plain(
-            ck, placed), reps=1)
-        res[cv.name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
-    emit("tree", t0, cap=cap, windows=W, **res)
-    n_aff, n_full = W * cap // 2, W * (cap // 2 - 1)
-    bms, by = bound_ms(W * cap * 2 * 32 + W * (cap - 1) * 96,
-                       (n_aff * MULS_PER_AFFINE_ADD + n_full * MULS_PER_PADD)
-                       * MADS_PER_MUL)
-    kernels["msm_tree"] = {
-        "name": "msm_tree", "route": "cuda",
-        "source": "reef_tpu_torch/csrc/msm_tree.cu",
-        "replaces": "reef_tpu/ec/msm_v3.py:182",
-        "max_abs_err": max(r["max_abs_err"] for r in res.values()),
-        "ms": res["pallas"]["ms"], "plain_ms": res["pallas"]["plain_ms"],
-        "bound_ms": bms, "bound_by": by, "library_ms": None,
-        "shape": f"(2, 8, {W}, {cap}) -> (3, 8, {W}, {cap}) int32, Pallas"}
+    kernels["msm_tree"] = phase_tree(torch, dev, curves)
 
     # ---- msm -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -938,7 +1016,8 @@ def main() -> int:
     # the document table: size + EOF + EPSILON entries, padded to 2^ell
     doc_ell = (size + 1).bit_length()
     require(doc_ell in [ell for ell, _ in sumchecks]
-            and launches["poseidon"] >= sum(ell for ell, _ in sumchecks),
+            and launches["poseidon_spread"] >= sum(ell for ell, _ in
+                                                   sumchecks),
             f"e2e: the 2^{doc_ell} document sumcheck did not run on the "
             f"card ({sumchecks}, {launches})")
     emit("e2e", t0, doc_bytes=size, wall_s=wall, device_msms=len(msms),
@@ -951,6 +1030,7 @@ def main() -> int:
 
     for name, k in kernels.items():
         k["launches"] = off_path.get(name, launches[name])
+    kernels["poseidon"]["spread_launches"] = launches["poseidon_spread"]
     table = [{**{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},

@@ -8,101 +8,84 @@
 // (b = 1 .. log2 cap, cap >> b nodes; node k = sorted points
 // [k 2^b, (k+1) 2^b)) at lanes [cap - (cap >> (b-1)), ... + (cap >> b)).
 // Node k of level b is node 2k + node 2k+1 of level b-1 — the same pairs as
-// the reference, so the projective results are identical.
+// the reference, so the projective results are identical.  Level 1 is the
+// 10-product affine add, the levels above the 14-product complete add.
 //
 // The TPU kernel keeps every level of one window in VMEM (megabytes) and
 // runs the windows one after another; it places points in bit-reversed
 // order so that each level's pairs are two contiguous sublane slices, and
-// leaves the levels narrower than 1024 lanes to separate XLA adds.  Here a
-// block has ~227 KB of shared memory and the blocks run in parallel, so the
-// tree is cut into sub-trees: one pass of this kernel takes 2^n nodes of
-// one level (natural order, pairs adjacent) per block and reduces them
-// through shared memory to one node, writing every level it makes; the
-// grid is (sub-trees, windows).  Level 1 is the 10-product affine add.  A
-// second pass, of the same kernel with the level-n nodes as its input,
-// makes the levels above (n <= 8 per pass, so two passes up to
-// cap = 65536).
+// leaves the levels narrower than 1024 lanes to separate XLA adds.  Here
+// the blocks run in parallel and nothing carries over between them, so the
+// tree is level-synchronous: one launch of tree_level a level, over all
+// windows, in which thread k adds nodes 2k and 2k+1 of the level below.
+// Every launched thread adds, with K1's registers and no barrier or shared
+// memory; all levels go out from one host call (reef_tree_levels), since
+// the MSM chunk around them is bound by its host's launches.  (A shared-
+// memory block that halves its adding threads each level, the earlier
+// design, keeps ~25% of them busy; sub-trees a thread keep a point live
+// across adds and spill; one cooperative launch for the levels above the
+// first, with a grid barrier between levels, is slower than the
+// launches: PERF.md has the measurements.)
 //
-// Bound on this card: integer multiply-adds, as for K1 (padd.cu).  Each
-// level halves the active threads: the first level of a block keeps all
-// of them busy, and the levels above it, which hold the other half of the
-// block's additions, leave more and more of them idle.
+// Bound on this card: integer multiply-adds, as for K1 (padd.cu), on the
+// bottom levels; each level narrower than the card (the top ~9 at
+// cap 16384, W = 32) costs one complete add's latency, ~14 dependent
+// Montgomery products.
 #include "ec.cuh"
 
 __device__ __forceinline__ size_t level_off(int cap, int b) {
     return (size_t)(cap - (cap >> (b - 1)));
 }
 
+// Level lvl of every window: node k from nodes 2k and 2k+1 of level lvl-1
+// (the gathered affine points in `src` when AFFINE_IN).
 template <int F, bool AFFINE_IN>
 __global__ void __launch_bounds__(128)
-tree_pass(const u32* __restrict__ src, u32* out, int W, int cap, int lvl_in,
-          int n_levels) {
-    extern __shared__ u32 sh[];            // 24 rows of `half` words
-    const int half = 1 << (n_levels - 1);  // == blockDim.x
-    const int t = threadIdx.x;
-    const size_t row = (size_t)W * cap;    // limb-row stride
-    const size_t base = (size_t)blockIdx.y * cap;
-    const size_t j = (size_t)blockIdx.x * half + t;
-
+tree_level(const u32* __restrict__ src, u32* out, int W, int cap, int lvl) {
+    const int shift = __ffs(cap) - 1 - lvl;      // log2(nodes a window)
+    const size_t g = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (g >= ((size_t)W << shift)) return;
+    const size_t row = (size_t)W * cap;          // limb-row stride
+    const size_t base = (g >> shift) * cap, k = g & ((1u << shift) - 1);
     point r;
-    if (AFFINE_IN) {
-        const size_t i0 = base + 2 * j;
+    if constexpr (AFFINE_IN) {
+        const size_t i0 = base + 2 * k;
         r = padd_affine<F>(load_fe(src, row, 0, i0), load_fe(src, row, 1, i0),
                            load_fe(src, row, 0, i0 + 1),
                            load_fe(src, row, 1, i0 + 1));
     } else {
-        const size_t i0 = base + level_off(cap, lvl_in) + 2 * j;
+        const size_t i0 = base + level_off(cap, lvl - 1) + 2 * k;
         r = padd<F>(load_point(out, row, i0), load_point(out, row, i0 + 1));
     }
-    int lvl = lvl_in + 1;
-    store_point(out, row, base + level_off(cap, lvl) + j, r);
+    store_point(out, row, base + level_off(cap, lvl) + k, r);
+}
 
-    for (int k = 1; k < n_levels; ++k) {
-        const int width = half >> k;       // this level's nodes in the block
-        if (t < 2 * width) store_point(sh, half, t, r);
-        __syncthreads();
-        if (t < width)
-            r = padd<F>(load_point(sh, half, 2 * t),
-                        load_point(sh, half, 2 * t + 1));
-        __syncthreads();
-        ++lvl;
-        if (t < width)
-            store_point(out, row,
-                        base + level_off(cap, lvl) +
-                            (size_t)blockIdx.x * width + t,
-                        r);
+template <int F>
+static void launch_levels(const u32* in, u32* o, int W, int cap, int lo,
+                          int hi, cudaStream_t s) {
+    for (int lvl = lo; lvl <= hi; ++lvl) {
+        const size_t threads = (size_t)W * (cap >> lvl);
+        const unsigned blocks = (unsigned)((threads + 127) / 128);
+        if (lvl == 1)
+            tree_level<F, true><<<blocks, 128, 0, s>>>(in, o, W, cap, 1);
+        else
+            tree_level<F, false><<<blocks, 128, 0, s>>>(in, o, W, cap, lvl);
     }
 }
 
-// One pass: levels lvl_in+1 .. lvl_in+n_levels of every window.  lvl_in 0
-// reads the gathered affine points from `src`; a later pass reads level
-// lvl_in from `out` itself.
-extern "C" int reef_tree_pass(const void* src, void* out, int W, int cap,
-                              int lvl_in, int n_levels, int field,
-                              void* stream) {
-    if (n_levels < 1 || n_levels > 8 || (cap >> lvl_in) < (1 << n_levels))
+// Levels lo .. hi (1 <= lo <= hi <= log2 cap) of every window, one launch
+// a level, in order: level 1 reads the gathered affine points from `src`,
+// a level above reads the level below it from `out` itself.
+extern "C" int reef_tree_levels(const void* src, void* out, int W, int cap,
+                                int lo, int hi, int field, void* stream) {
+    if (W < 1 || cap < 2 || (cap & (cap - 1)) || lo < 1 || hi < lo ||
+        (cap >> hi) < 1 || field < 0 || field > 1)
         return (int)cudaErrorInvalidValue;
-    const int half = 1 << (n_levels - 1);
-    const dim3 grid((cap >> lvl_in) / (2 * half), W);
-    const dim3 block(half);
-    const size_t smem = 24 * half * sizeof(u32);
-    cudaStream_t s = (cudaStream_t)stream;
-    const u32* in = (const u32*)src;
-    u32* o = (u32*)out;
-    if (field == 0) {
-        if (lvl_in == 0)
-            tree_pass<0, true><<<grid, block, smem, s>>>(in, o, W, cap, 0,
-                                                         n_levels);
-        else
-            tree_pass<0, false><<<grid, block, smem, s>>>(in, o, W, cap,
-                                                          lvl_in, n_levels);
-    } else {
-        if (lvl_in == 0)
-            tree_pass<1, true><<<grid, block, smem, s>>>(in, o, W, cap, 0,
-                                                         n_levels);
-        else
-            tree_pass<1, false><<<grid, block, smem, s>>>(in, o, W, cap,
-                                                          lvl_in, n_levels);
-    }
+    if (field == 0)
+        launch_levels<0>((const u32*)src, (u32*)out, W, cap, lo, hi,
+                         (cudaStream_t)stream);
+    else
+        launch_levels<1>((const u32*)src, (u32*)out, W, cap, lo, hi,
+                         (cudaStream_t)stream);
     return (int)cudaGetLastError();
 }

@@ -8,8 +8,8 @@ between them is torch ops, as it was XLA ops on the TPU:
     1. sort the lanes by digit (keys digit<<20 | lane), descending;
     2. count the lanes with digit >= d for d = 1..255 (searchsorted);
     3. gather the sorted points and build the pairwise-sum tree over them
-       (K2, csrc/msm_tree.cu, when cap >= 4096; else one K1 launch per
-       level);
+       (K2, csrc/msm_tree.cu, one launch a level, when cap >= 4096;
+       else one K1 launch per level);
     4. assemble each digit's boundary prefix, the sum of the first
        count(>= d) sorted points, from at most log2(cap)+1 tree nodes
        (a Fenwick decomposition: one gather, then a pairwise reduce over
@@ -47,7 +47,6 @@ N_WINDOWS = 32            # 32 LE bytes cover the 255-bit scalars
 D = 255                   # digits 1..255 have bucket boundaries
 DP = 256                  # padded digit axis
 TREE_MIN_CAP = 4096       # the tree kernel runs for chunks this wide
-TREE_LEVELS_PER_PASS = 8  # levels one K2 launch builds (2^8 nodes a block)
 
 PaddFn = Callable[[CurveKernels, torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -109,10 +108,34 @@ def tree_levels_plain(ck: CurveKernels, placed: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def tree_plan(cap: int) -> List[int]:
+    """The tree levels K2 makes, one launch each, in order: 1 .. log2 cap
+    (level-synchronous: every thread of a launch adds one node)."""
+    return list(range(1, cap.bit_length()))
+
+
+def tree_launch(ck: CurveKernels, placed: torch.Tensor, out: torch.Tensor,
+                levels: List[int]) -> None:
+    """K2's launches for `levels`, consecutive and ascending, from one call
+    of the library: those levels of every window, into `out`
+    (3, 8, W, cap), from `placed` (level 1) or the level below in `out`."""
+    _, _, W, cap = placed.shape
+    lo, hi = levels[0], levels[-1]
+    if list(levels) != list(range(lo, hi + 1)) or lo < 1 or cap >> hi < 1:
+        raise ValueError(f"K2: levels {levels} are not a run of 1..log2 "
+                         f"{cap}")
+    lib = cudabuild.library("msm_tree")
+    stream = torch.cuda.current_stream(placed.device).cuda_stream
+    err = lib.reef_tree_levels(placed.data_ptr(), out.data_ptr(), W, cap,
+                               lo, hi, ck.lf.field_id, stream)
+    cudabuild.check(err, "reef_tree_levels")
+    for _ in levels:
+        cudabuild.count("msm_tree")
+
+
 def tree_levels(ck: CurveKernels, placed: torch.Tensor) -> torch.Tensor:
-    """All tree levels of every window; K2 on a CUDA tensor, the plain
-    version on a CPU tensor.  One launch per TREE_LEVELS_PER_PASS levels
-    (two for cap = 4096 .. 65536)."""
+    """All tree levels of every window; K2 on a CUDA tensor, one launch a
+    level of `tree_plan(cap)`, the plain version on a CPU tensor."""
     _check_placed(placed)
     if placed.device.type == "cpu":
         return tree_levels_plain(ck, placed)
@@ -121,17 +144,7 @@ def tree_levels(ck: CurveKernels, placed: torch.Tensor) -> torch.Tensor:
     _, _, W, cap = placed.shape
     out = torch.empty((3, limb.N32, W, cap), dtype=torch.int32,
                       device=placed.device)
-    log = cap.bit_length() - 1
-    lib = cudabuild.library("msm_tree")
-    stream = torch.cuda.current_stream(placed.device).cuda_stream
-    lvl = 0
-    while lvl < log:
-        n = min(TREE_LEVELS_PER_PASS, log - lvl)
-        err = lib.reef_tree_pass(placed.data_ptr(), out.data_ptr(), W, cap,
-                                 lvl, n, ck.lf.field_id, stream)
-        cudabuild.check(err, "reef_tree_pass")
-        cudabuild.count("msm_tree")
-        lvl += n
+    tree_launch(ck, placed, out, tree_plan(cap))
     return out
 
 
@@ -193,14 +206,17 @@ def chunk_prefixes(ck: CurveKernels, pts: torch.Tensor, scb: torch.Tensor,
     ident = ck.ident_t(dev)
     k0 = torch.clamp((m >> 1) << 1, max=cap - 1)
     g0 = pts[:, :, torch.gather(order_desc, 1, k0)]        # (3, 8, W, DP)
-    idx = torch.stack([offs[b] + (((m >> (b + 1)) << (b + 1)) >> b)
-                       for b in range(1, log + 1)], dim=1)  # (W, log, DP)
+    # all levels in one expression: the chunk's glue is bound by its
+    # host's launches, so a few tensor ops over the level axis beat a few
+    # per level (offs[b] = cap - (cap >> (b-1)), as level_offsets)
+    bits = torch.arange(log + 1, device=dev)[:, None]      # (log+1, 1)
+    b, b1 = bits[1:], bits[1:] + 1
+    idx = (cap - (cap >> (b - 1))) + (((m[:, None] >> b1) << b1) >> b)
     g = torch.gather(flat, 3, idx.reshape(1, 1, W, log * DP)
-                     .expand(3, limb.N32, W, log * DP))
+                     .expand(3, limb.N32, W, log * DP))    # idx (W, log, DP)
     g = torch.cat([g0[:, :, :, None, :],
                    g.reshape(3, limb.N32, W, log, DP)], dim=3)
-    bits = torch.arange(log + 1, device=dev)
-    mask = ((m[:, None, :] >> bits[None, :, None]) & 1).bool()
+    mask = ((m[:, None, :] >> bits) & 1).bool()
     g = torch.where(mask, g, ident[:, :, None, None, None])
     L = 1 << log.bit_length()                              # pad to 2^k
     if L != log + 1:

@@ -5,12 +5,12 @@ of width t is a (t, 8, B) int32 tensor in the kernels' layout (ops.limb):
 lane l of every state is one (8, B) field row, Montgomery form.
 `permute` is the batched permutation and K5's wrapper: on a CUDA tensor
 it launches K5 (ops/poseidon_kernel.py, csrc/poseidon.cu) for every batch
-size, down to the single sponge state of a sumcheck round; on a CPU
-tensor it runs `permute_plain`, the same rounds in plain torch on 16-bit
-limbs.  The
-reference keeps a `lax.scan` for batches below one Pallas block (1024
-states); here a plain torch permutation on the card would cost a hundred
-thousand launches, so the kernel serves every size.
+size, down to the single sponge state of a sumcheck round, by the launch
+`poseidon_kernel.route` picks; on a CPU tensor it runs `permute_plain`,
+the same rounds in plain torch on 16-bit limbs.  The reference keeps a
+`lax.scan` for batches below one Pallas block (1024 states); here a plain
+torch permutation on the card would cost a hundred thousand launches, so
+the kernel serves every size.
 
 Width t = 5 (arity 4) hashes Merkle nodes; t = 9 (rate 8) is the nlookup
 Fiat-Shamir sponge (backend/costs.py NL_RATE).
@@ -75,27 +75,43 @@ def _mds_plain(lf: LimbField, s: torch.Tensor,
     return out
 
 
-def _permute16(lf: LimbField, s: torch.Tensor) -> torch.Tensor:
-    """The permutation on a (16, t, B) int64 plain-layout batch."""
+def _spread_round(lf: LimbField, s: torch.Tensor, rc: torch.Tensor,
+                  mds: torch.Tensor, full: bool) -> torch.Tensor:
+    """One round on (16, t, B) int64 as csrc/poseidon.cu's
+    perm_spread_kernel computes it: x = s + rc; the products
+    (M_ij x_j) x_j^4 on the S-box lanes j and M_ij x_j on the others;
+    then each row's t products summed by modular adds."""
+    t = s.shape[1]
+    x = limb.add(lf, s, rc)
+    p = limb.mul(lf, mds, x[:, None])                    # (16, t, t, B)
+    k = t if full else 1
+    x2 = limb.mul(lf, x[:, :k], x[:, :k])
+    p = torch.cat([limb.mul(lf, p[:, :, :k], limb.mul(lf, x2, x2)[:, None]),
+                   p[:, :, k:]], dim=2)
+    row = p[:, :, 0]
+    for j in range(1, t):
+        row = limb.add(lf, row, p[:, :, j])
+    return row
+
+
+def _permute16(lf: LimbField, s: torch.Tensor,
+               spread: bool = False) -> torch.Tensor:
+    """The permutation on a (16, t, B) int64 plain-layout batch; `spread`
+    takes `_spread_round`'s arithmetic."""
     t = s.shape[1]
     rc, mds = _plain_consts(lf, t, s.device)
-    half = FULL_ROUNDS // 2
-    r_p = PARTIAL_ROUNDS[t]
-
-    def full(s, r):
-        return _mds_plain(lf, limb.pow5(lf, limb.add(lf, s, rc[r])), mds)
-
-    def partial(s, r):
+    half, r_p = FULL_ROUNDS // 2, PARTIAL_ROUNDS[t]
+    for r in range(2 * half + r_p):
+        full = r < half or r >= half + r_p
+        if spread:
+            s = _spread_round(lf, s, rc[r], mds, full)
+            continue
         s = limb.add(lf, s, rc[r])
-        s = torch.cat([limb.pow5(lf, s[:, :1]), s[:, 1:]], dim=1)
-        return _mds_plain(lf, s, mds)
-
-    for r in range(half):
-        s = full(s, r)
-    for r in range(half, half + r_p):
-        s = partial(s, r)
-    for r in range(half + r_p, 2 * half + r_p):
-        s = full(s, r)
+        if full:
+            s = limb.pow5(lf, s)
+        else:
+            s = torch.cat([limb.pow5(lf, s[:, :1]), s[:, 1:]], dim=1)
+        s = _mds_plain(lf, s, mds)
     return s
 
 
@@ -111,10 +127,13 @@ def _check_state(state: torch.Tensor) -> int:
     return t
 
 
-def permute_plain(lf: LimbField, state: torch.Tensor) -> torch.Tensor:
-    """K5's plain version: (t, 8, B) int32 -> (t, 8, B) int32, any device."""
+def permute_plain(lf: LimbField, state: torch.Tensor,
+                  spread: bool = False) -> torch.Tensor:
+    """K5's plain version: (t, 8, B) int32 -> (t, 8, B) int32, any device;
+    `spread` repeats the arithmetic of K5's SPREAD launch (the same
+    values, reached another way)."""
     _check_state(state)
-    s = _permute16(lf, limb.split32(state.transpose(0, 1)))
+    s = _permute16(lf, limb.split32(state.transpose(0, 1)), spread)
     return limb.join16(s).transpose(0, 1).contiguous()
 
 

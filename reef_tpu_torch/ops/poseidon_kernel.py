@@ -6,19 +6,36 @@ the card (t = 5 or 9, Montgomery, the layout of ops.poseidon_device),
 whatever B, and counts the launch.  ops.poseidon_device.permute is the
 wrapper that callers use: it sends CUDA tensors here and runs the plain
 version on CPU tensors.  The kernel's round constants and MDS are copied
-into its constant banks once per process, field and width.
+into its constant banks (and their global copies) once per process,
+field and width.  Every launch adds one to the `poseidon` count, a
+SPREAD launch one to `poseidon_spread` as well.
+
+K5 has two launches: THREAD gives each state one thread (the Merkle
+leaves, the flagship step), SPREAD gives each state a block of t row
+groups (a sumcheck round's single sponge state, the top levels of a
+Merkle tree).  `route` picks one by batch size.
 """
 
 from __future__ import annotations
 
-from typing import Set, Tuple
+from typing import Optional, Set, Tuple
 
 import torch
 
 from ..utils import cudabuild
 from .limb import LimbField
 
+THREAD, SPREAD = 0, 1
+# the least batch that goes to THREAD: below it SPREAD is faster on an
+# H100 at both widths (the sweep of chip_smoke.py's poseidon phase)
+THREAD_MIN_B = 4096
+
 _CONSTS_SET: Set[Tuple[int, int]] = set()
+
+
+def route(B: int) -> int:
+    """The launch that permutes a batch of B states."""
+    return SPREAD if B < THREAD_MIN_B else THREAD
 
 
 def _set_consts(lib, lf: LimbField, t: int) -> None:
@@ -32,8 +49,10 @@ def _set_consts(lib, lf: LimbField, t: int) -> None:
     _CONSTS_SET.add((lf.field_id, t))
 
 
-def launch(lf: LimbField, state: torch.Tensor) -> torch.Tensor:
-    """(t, 8, B) int32 CUDA tensor -> a new one, each state permuted."""
+def launch(lf: LimbField, state: torch.Tensor,
+           path: Optional[int] = None) -> torch.Tensor:
+    """(t, 8, B) int32 CUDA tensor -> a new one, each state permuted, by
+    the launch `path` (THREAD or SPREAD; default `route(B)`)."""
     if state.device.type != "cuda":
         raise ValueError(f"K5: a CUDA tensor is needed, not {state.device}")
     t = state.shape[0]
@@ -43,12 +62,18 @@ def launch(lf: LimbField, state: torch.Tensor) -> torch.Tensor:
         raise ValueError("K5: state is not contiguous")
     out = torch.empty_like(state)
     B = state.shape[2]
+    if path is None:
+        path = route(B)
+    if path not in (THREAD, SPREAD):
+        raise ValueError(f"K5: no launch {path}")
     if B:
         lib = cudabuild.library("poseidon")
         _set_consts(lib, lf, t)
         stream = torch.cuda.current_stream(state.device).cuda_stream
         err = lib.reef_poseidon(state.data_ptr(), out.data_ptr(), B, t,
-                                lf.field_id, stream)
+                                lf.field_id, path, stream)
         cudabuild.check(err, "reef_poseidon")
         cudabuild.count("poseidon")
+        if path == SPREAD:
+            cudabuild.count("poseidon_spread")
     return out

@@ -38,11 +38,11 @@ P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # function returns a cudaError_t as an int
 LIBS = {
     "padd": ("padd.cu", {"reef_padd": [P, P, P, I, I, P]}),
-    "msm_tree": ("msm_tree.cu", {"reef_tree_pass": [P, P, I, I, I, I, I,
-                                                    P]}),
+    "msm_tree": ("msm_tree.cu", {"reef_tree_levels": [P, P, I, I, I, I, I,
+                                                      P]}),
     "poseidon": ("poseidon.cu", {
         "reef_poseidon_set_consts": [I, I, P, P],
-        "reef_poseidon": [P, P, I, I, I, P]}),
+        "reef_poseidon": [P, P, I, I, I, I, P]}),
     "sumcheck": ("sumcheck.cu", {
         "reef_sc_coeffs": [P, P, P, P, L, L, L, I, I, P, P, P, P, I, I, P],
         "reef_sc_fold": [P, P, P, P, L, L, P, L, P, P, L, I, P],
@@ -52,9 +52,11 @@ LIBS = {
 }
 
 # the kernels whose launches are counted (the K6 library has three, the
-# K3/K4 library two)
-KERNELS = ("padd", "msm_tree", "poseidon", "sumcheck_coeffs",
-           "sumcheck_fold", "sumcheck_eq", "mont_mul", "mont_redc")
+# K3/K4 library two); "poseidon" counts every K5 launch, "poseidon_spread"
+# those of its block-per-state kernel
+KERNELS = ("padd", "msm_tree", "poseidon", "poseidon_spread",
+           "sumcheck_coeffs", "sumcheck_fold", "sumcheck_eq", "mont_mul",
+           "mont_redc")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _COUNTS: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -23,6 +23,7 @@ from _torch_support import (no_compile_cache_writes,  # noqa: F401
                             one_torch_thread)
 from reef_tpu import cli as ref_cli
 from reef_tpu_torch import cli
+from reef_tpu_torch.ops import poseidon_device
 from reef_tpu_torch.utils import device
 
 pytestmark = pytest.mark.e2e
@@ -32,6 +33,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (alphabet, document, regex, mode flags)
 MERKLE = ("ascii", "aaaaaaaab", ".*b", ["-m"])
 NEGATE = ("ascii", "aa", "^ab$", ["-n"])
+DNA = ("dna", "ACGTTGCAAC", ".*TTG.*", [])
+PROJ_HYBRID = ("dna", "A" * 36 + "ACGT", "^.{36}ACGT$", ["-p", "-y"])
 
 
 @pytest.fixture(autouse=True)
@@ -90,6 +93,39 @@ def test_cross_verify(tmp_path, case, prover):
         _port("--prove", case)
         out = _ref("--verify", case)
     else:
+        _ref("--commit", case)
+        _ref("--prove", case)
+        out = _port("--verify", case)
+    assert "Verification PASSED" in out
+
+
+@pytest.mark.parametrize("case", [DNA, PROJ_HYBRID], ids=["dna", "proj-hybrid"])
+@pytest.mark.parametrize("prover", ["port", "ref"])
+def test_cross_verify_device_sumcheck(monkeypatch, tmp_path, case, prover):
+    """The port proves with every nlookup batch on its device route, whose
+    Fiat-Shamir sponge is one state permuted at a time
+    (`poseidon_device.permute` at B = 1, K5's launch of a block per state
+    on the card), and the JAX package verifies; the JAX package proves on
+    its host routes, and the port verifies."""
+    (tmp_path / "doc.txt").write_text(case[1])
+    monkeypatch.setenv("REEF_DEVICE_MSM", "0")
+    if prover == "port":
+        batches = []
+        orig = poseidon_device.permute
+
+        def counted(lf, state):
+            batches.append(state.shape[2])
+            return orig(lf, state)
+
+        monkeypatch.setattr(poseidon_device, "permute", counted)
+        monkeypatch.setenv("REEF_DEVICE_SUMCHECK", "1")
+        _port("--commit", case)
+        _port("--prove", case)
+        assert batches and set(batches) == {1}
+        monkeypatch.setenv("REEF_DEVICE_SUMCHECK", "0")
+        out = _ref("--verify", case)
+    else:
+        monkeypatch.setenv("REEF_DEVICE_SUMCHECK", "0")
         _ref("--commit", case)
         _ref("--prove", case)
         out = _port("--verify", case)

@@ -155,8 +155,9 @@ def test_tree_levels_plain_sums_sorted_points(name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(CURVES))
 def test_kernels_match_plain_on_card(name):
-    """K1 (csrc/padd.cu) and K2 (csrc/msm_tree.cu) on the card, exactly
-    against their plain versions, each launch counted."""
+    """K1 (csrc/padd.cu) and K2 (csrc/msm_tree.cu, at cap 4096 and 16384)
+    on the card, exactly against their plain versions, each launch
+    counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     ck = CURVES[name][0]()
@@ -165,18 +166,21 @@ def test_kernels_match_plain_on_card(name):
     pairs = _pairs(cv, 14) * 300
     P = _soa(ck, [a for a, _ in pairs]).to(dev)
     Q = _soa(ck, [b for _, b in pairs]).to(dev)
-    before = cudabuild.launch_counts()
+    before = cudabuild.launch_counts()["padd"]
     got = padd_soa(ck, P, Q)
     assert torch.equal(got.cpu(), padd_soa_plain(ck, P.cpu(), Q.cpu()))
-    W, cap = 32, 4096
+    assert cudabuild.launch_counts()["padd"] == before + 1
     g = torch.Generator().manual_seed(15)
-    order = torch.stack([torch.randperm(cap, generator=g) for _ in range(W)])
-    base = _soa(ck, PedersenGens(cv, b"test_torch_ec/tree", cap).G)
-    placed = base[:2][:, :, order].contiguous()
-    tree = msm_v3.tree_levels(ck, placed.to(dev))
-    torch.cuda.synchronize()
-    assert torch.equal(tree.cpu()[..., :cap - 1],
-                       msm_v3.tree_levels_plain(ck, placed)[..., :cap - 1])
-    after = cudabuild.launch_counts()
-    assert after["padd"] == before["padd"] + 1
-    assert after["msm_tree"] == before["msm_tree"] + 2
+    for cap in (4096, 16384):
+        W = 32
+        order = torch.stack([torch.randperm(cap, generator=g)
+                             for _ in range(W)])
+        base = _soa(ck, PedersenGens(cv, b"test_torch_ec/tree", cap).G)
+        placed = base[:2][:, :, order].contiguous().to(dev)
+        before = cudabuild.launch_counts()["msm_tree"]
+        tree = msm_v3.tree_levels(ck, placed)
+        torch.cuda.synchronize()
+        assert torch.equal(tree[..., :cap - 1],
+                           msm_v3.tree_levels_plain(ck, placed)[..., :cap - 1])
+        assert cudabuild.launch_counts()["msm_tree"] == \
+            before + len(msm_v3.tree_plan(cap))

@@ -74,6 +74,41 @@ def test_msm_tree_path_matches_reference(name, cpu_engine):
     assert got == _native(ref_cv, scalars, pts)
 
 
+@pytest.mark.parametrize("log", range(1, 17))
+def test_tree_plan_makes_every_level_once_in_order(log, monkeypatch):
+    """K2's plan for cap = 2 .. 65536 makes levels 1..log2 cap, each once
+    and in order, and `tree_launch` hands the library that run of levels
+    in one call and counts one launch a level (a stand-in library records
+    the call; nothing launches)."""
+    cap = 1 << log
+    plan = msm_v3.tree_plan(cap)
+    assert plan == list(range(1, log + 1))
+    calls = []
+
+    class Lib:
+        def reef_tree_levels(self, src, out, W, cap_, lo, hi, field, stream):
+            calls.append((W, cap_, lo, hi, field))
+            return 0
+
+    monkeypatch.setattr(msm_v3.cudabuild, "library", lambda name: Lib())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 0}))
+    ck = msm.pallas_kernels()
+    placed = torch.zeros((2, 8, 1, cap), dtype=torch.int32)
+    out = torch.zeros((3, 8, 1, cap), dtype=torch.int32)
+    before = msm_v3.cudabuild.launch_counts()["msm_tree"]
+    msm_v3.tree_launch(ck, placed, out, plan)
+    assert calls == [(1, cap, 1, log, ck.lf.field_id)]
+    assert msm_v3.cudabuild.launch_counts()["msm_tree"] == before + log
+    bad = [[0] + plan, plan + [log + 1], plan[:1] * 2]
+    if log > 1:
+        bad.append(plan[::-1])
+    for levels in bad:
+        with pytest.raises(ValueError):
+            msm_v3.tree_launch(ck, placed, out, levels)
+    assert len(calls) == 1
+
+
 def test_msm_rows_small_chunks(cpu_engine):
     """The rows entry point with its device combine, over chunks below
     the tree floor (one point add per level), two chunks per MSM, and a

@@ -8,8 +8,10 @@ fields; `hash_elems` must equal the JAX package's HostSponge; the port's
 own round constants and MDS must equal the reference's; and the batched
 Merkle build must give the root of the reference's MerkleCommitment.
 Field arithmetic is exact, so every comparison is of integers, with no
-tolerance.  Tests marked `cuda` hold K5 (csrc/poseidon.cu) against the
-plain version and skip where torch sees no CUDA device.
+tolerance.  K5 has two launches, picked by batch size; the plain twin of
+the block-per-state launch's arithmetic must give the host permutation
+too.  Tests marked `cuda` hold both launches (csrc/poseidon.cu) against
+the plain version and skip where torch sees no CUDA device.
 """
 
 import numpy as np
@@ -129,21 +131,58 @@ def test_permute_on_cpu_runs_the_plain_version():
         poseidon.permute(lf, x.long())
 
 
+@pytest.mark.parametrize("t", [5, 9])
+@pytest.mark.parametrize("name", sorted(FIELDS))
+def test_spread_arithmetic_matches_reference(name, t):
+    """The block-per-state launch's arithmetic, (M_ij x_j) x_j^4 summed
+    row by row, in plain torch: the host permutation, exactly."""
+    lf = FIELDS[name][0]
+    states = _states(lf, t, 2, seed=t * 10 + 1)
+    got = poseidon_device.permute_plain(lf, _to_port(lf, states), spread=True)
+    assert _from_port(lf, got) == [host_permutation(lf.p_int, s)
+                                   for s in states]
+
+
+def test_route_picks_one_launch_by_batch_size():
+    """Below the crossover the block-per-state launch, from it on the
+    thread-per-state one; every B gets exactly one of the two."""
+    cross = poseidon_kernel.THREAD_MIN_B
+    paths = (poseidon_kernel.THREAD, poseidon_kernel.SPREAD)
+    assert len(set(paths)) == 2
+    for B in (1, 2, 37, cross - 1, cross, cross + 1, 1 << 19):
+        want = poseidon_kernel.SPREAD if B < cross else poseidon_kernel.THREAD
+        assert poseidon_kernel.route(B) == want, B
+    assert poseidon_kernel.route(1) == poseidon_kernel.SPREAD
+    assert poseidon_kernel.route(1 << 19) == poseidon_kernel.THREAD
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("t", [5, 9])
 @pytest.mark.parametrize("name", sorted(FIELDS))
 def test_kernel_matches_plain_on_card(name, t):
-    """K5 on the card, exactly against its plain version and the host
-    permutation, each launch counted."""
+    """Both K5 launches on the card at B = 1, 2, 37 and on either side of
+    the crossover, exactly against the plain version and the host
+    permutation, each launch counted; `permute` routes by B."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     lf = FIELDS[name][0]
-    states = _states(lf, t, 37, seed=t)
-    x = _to_port(lf, states, "cuda")
-    before = cudabuild.launch_counts()["poseidon"]
-    got = poseidon.permute(lf, x)
-    torch.cuda.synchronize()
-    assert cudabuild.launch_counts()["poseidon"] == before + 1
-    assert torch.equal(got.cpu(), poseidon_device.permute_plain(lf, x.cpu()))
-    assert _from_port(lf, got) == [host_permutation(lf.p_int, s)
-                                   for s in states]
+    cross = poseidon_kernel.THREAD_MIN_B
+    for B in (1, 2, 37, cross - 1, cross):
+        states = _states(lf, t, B, seed=t + B)
+        x = _to_port(lf, states, "cuda")
+        want = poseidon_device.permute_plain(lf, x.cpu())
+        for path in (poseidon_kernel.THREAD, poseidon_kernel.SPREAD):
+            before = cudabuild.launch_counts()
+            got = poseidon_kernel.launch(lf, x, path)
+            torch.cuda.synchronize()
+            after = cudabuild.launch_counts()
+            assert after["poseidon"] == before["poseidon"] + 1
+            assert after["poseidon_spread"] == before["poseidon_spread"] + (
+                path == poseidon_kernel.SPREAD)
+            assert torch.equal(got.cpu(), want), (B, path)
+        before = cudabuild.launch_counts()["poseidon_spread"]
+        assert torch.equal(poseidon.permute(lf, x).cpu(), want)
+        assert cudabuild.launch_counts()["poseidon_spread"] == before + (
+            B < cross)
+        assert _from_port(lf, got[:, :, :3]) == [
+            host_permutation(lf.p_int, s) for s in states[:3]]
