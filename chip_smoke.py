@@ -9,9 +9,15 @@ script exits non-zero and prints no result:
   env     the card (nvidia-smi name and power limit), torch and CUDA
   build   nvcc builds of the kernels (one process per source, together)
           and the g++ builds of the shared host libraries
-  padd    K1 (csrc/padd.cu) against its plain version at B = 2^16 random
-          points on both curves, with the identity, P+P and P+(-P) lanes;
-          exact
+  padd    K1 (csrc/padd.cu) against its plain version on both curves,
+          with the identity, P+P and P+(-P) lanes: both launches of the add
+          (a thread a lane, a group of six threads a lane) at B = 1, 2,
+          37, the crossover -1, 0, +1, 8192 and 2^16, and the halving
+          reduce against the per-level loop at the MSM's two shapes (the
+          Fenwick levels with the acc add, the digits); exact.  The sweep
+          of both add launches' device times over B = 2^0..2^16 that set
+          the crossover (padd.THREAD_MIN_B), and the reduces against the
+          per-level launches they replace
   tree    K2 (csrc/msm_tree.cu) against its plain version at cap = 4096
           and 16384 on both curves and 65536 on Pallas, all 32 windows;
           exact on every node, spot-checked on affine points against the
@@ -31,7 +37,9 @@ script exits non-zero and prints no result:
   sumcheck  a full device nlookup_prove on 2^14 and 2^16 tables against
           the host route (exact transcript, both routes timed); K6
           (csrc/sumcheck.cu: coefficients, fold, eq step) against the
-          plain versions at half = 2^19
+          plain versions at half = 2^19, and the coefficient launch at
+          every half 2^19..1 with and without a sponge state, one launch
+          a round, each round's device time
   merkle  build_tree_device of the 1 MB DNA document (2^19 leaves, one K5
           launch per level), timed; a 64 Ki-entry document's root equal
           to the host MerkleCommitment
@@ -58,17 +66,25 @@ script exits non-zero and prints no result:
   e2e     `cli dna --e2e` in-process with REEF_DEVICE_MSM=1 and
           REEF_DEVICE_SUMCHECK=auto on the 1 MB document of the
           reference's dna.sh workload (seed 42); must prove and verify,
-          and every kernel of its path (K1, K2, K5, K6; K3 and K4 report
-          the launches of their own phases) must have launched (the
+          and every kernel of its path (K1, K2, K5, K6; K3 and K4 run
+          off it, in their own phases) must have launched (the
           2^20-entry document sumcheck runs on the card: K5's
           block-per-state launch once a round, counted apart as
-          `poseidon_spread`).  The device MSMs
-          and the device sumcheck are timed; then the same run is timed
-          again in the warm process, with both routes on the host
-          (REEF_DEVICE_MSM=0, REEF_DEVICE_SUMCHECK=0) and on the card
+          `poseidon_spread`; K1 only in its halving reduces, one a
+          chunk and one an MSM; one coefficient launch a round).  The
+          device MSMs and the device sumcheck are timed; then the same
+          run is timed again in the warm process, with both routes on the
+          host (REEF_DEVICE_MSM=0, REEF_DEVICE_SUMCHECK=0) and on the
+          card, and once more on the card under torch.profiler: each
+          kernel's device time over one warm e2e, by name
 
-Then the kernel table as one JSON line, the card's name and power limit,
-and as the last line {"ok": true, "device": {...}}.  Needs torch with
+Then the bound of each kernel row at the card's integer rate as one JSON
+line, the card's name and power limit, the kernel table as one JSON line
+(its `launches` are the e2e's), and as the last line {"ok": true,
+"device": {...}}.  Kernel times are
+CUDA events around a run of launches; `device_ms` queues the launches
+behind a sleep on the card first, so that a short kernel's time is not
+its host's issue rate.  Needs torch with
 CUDA, nvcc (CUDA_HOME or /usr/local/cuda) and g++; imports nothing of
 JAX.
 """
@@ -86,9 +102,15 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_INT_OPS_PER_S = 67e12      # non-tensor 32-bit rate (fp32 table row)
+# 32-bit integer multiply-adds (IMAD, and madc) a clock per SM on compute
+# capability 9.0: half the FP32 rate (the CUDA C Programming Guide's
+# arithmetic-instruction throughput table); times 132 SMs and the SM clock
+H100_SMS, IMADS_PER_CLOCK_PER_SM = 132, 64
+SM_CLOCK_MHZ = [1980.0]         # nvidia-smi clocks.max.sm, read in main
 MULS_PER_PADD, MULS_PER_AFFINE_ADD = 14, 10
 # a Montgomery product (csrc/field.cuh): 8 CIOS rounds of two 8-limb
 # multiply-add chains (lo and hi halves: 32 mads) plus one m = t0*n0
@@ -107,6 +129,13 @@ DNA_MOTIF = "ATGGGCTACAGAAACCGTGCCAAA"
 # the shapes of each phase (module constants, so a rehearsal on the CPU
 # can shrink them)
 PADD_LANES = 1 << 16
+PADD_CHECK_B = (1, 2, 37, 8192)
+PADD_SWEEP_LOG = 16
+# the MSM's two K1 reduces: (A, L, C, acc) of (3, 8, A, L, C) -> (3, 8, A,
+# C), W = 32 windows, L = 16 Fenwick levels (log2 16384 + 1, padded) over
+# DP = 256 digits, then the 256 digits
+REDUCE_SHAPES = {"fenwick": (32, 16, 256, True), "digits": (32, 256, 1, False)}
+SUMCHECK_KERNEL_LOG = 19
 TREE_CAP = 16384
 TREE_CHECK = {"pallas": (4096, 16384, 65536), "vesta": (4096, 16384)}
 MSM_N = 1 << 16
@@ -126,7 +155,8 @@ MXU_B = (1 << 14, 1 << 19)
 MXU_T9_B = 4096
 AUX_BINARY_N, AUX_PALLAS_N = 256, 2048
 # the e2e's kernels: K1, K2, K5 and K6 (K3 and K4 run off its path)
-E2E_KERNELS = ("padd", "msm_tree", "poseidon", "poseidon_spread",
+E2E_KERNELS = ("padd", "padd_reduce", "msm_tree", "poseidon",
+               "poseidon_spread",
                "sumcheck_coeffs", "sumcheck_fold", "sumcheck_eq")
 # a Montgomery reduction alone: 8 rounds of one 8-limb multiply-add chain
 # pair (lo and hi) plus one m = t0*n0
@@ -164,6 +194,42 @@ def cuda_ms(torch, fn, reps: int, warm: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int = 20) -> float:
+    """Mean device milliseconds of fn() over `reps` runs queued behind a
+    sleep on the card (long enough for the host to issue all of them), so
+    that they run back to back whatever the host's speed.  Where the host
+    took longer to issue them than the sleep lasted (a stalled host), the
+    sleep is doubled and the runs made again, up to three times."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    sleep_s = 2 * reps * (time.perf_counter() - t0) + 1e-3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        torch.cuda._sleep(int(2e9 * sleep_s))     # ~1 s per 2e9 cycles
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        issued_s = time.perf_counter() - t0
+        end.synchronize()
+        if issued_s < sleep_s:
+            break
+        sleep_s *= 2
+    return start.elapsed_time(end) / reps
+
+
+def int_bound_ms(mads: int) -> float:
+    """Least time for `mads` 32-bit multiply-adds at the card's integer
+    rate (IMADS_PER_CLOCK_PER_SM x H100_SMS x the SM clock)."""
+    rate = IMADS_PER_CLOCK_PER_SM * H100_SMS * SM_CLOCK_MHZ[0] * 1e6
+    return mads / rate * 1e3
 
 
 def bound_ms(nbytes: int, mads: int):
@@ -221,6 +287,161 @@ def tree_split(torch, ck, placed, reps: int):
     return [x / reps for x in tot]
 
 
+def padd_pairs(torch, ck, dev, B: int, rnd):
+    """(3, 8, B) projective points P, Q (Z != 1: sums of the chip_smoke
+    generators) whose lanes 0..4 are 0 + 0, 0 + Q, P + 0, P + P and
+    P + (-P)."""
+    from reef_tpu_torch.backend.commitment import PedersenGens
+    from reef_tpu_torch.ec.padd import padd_soa_plain
+    cv = ck.curve
+    gens = PedersenGens(cv, b"chip_smoke/padd", B).G
+    A = points_of(ck, gens, dev, torch)
+    perm = list(range(B))
+    rnd.shuffle(perm)
+    Bp = points_of(ck, [gens[i] for i in perm], dev, torch)
+    P = padd_soa_plain(ck, A, Bp)
+    Q = padd_soa_plain(ck, Bp, padd_soa_plain(ck, A, A))
+    ident = ck.ident_t(dev)
+    P[:, :, 0] = ident
+    Q[:, :, 0] = ident
+    P[:, :, 1] = ident
+    Q[:, :, 2] = ident
+    Q[:, :, 3] = P[:, :, 3]
+    Q[:, :, 4] = P[:, :, 4]
+    y4 = ck.lf.decode32(P[1, :, 4:5])[0]
+    Q[1, :, 4] = ck.lf.encode32([(-y4) % cv.p], dev)[:, 0]  # (X:-Y:Z)
+    return P, Q
+
+
+def phase_padd(torch, dev, curves, rnd) -> dict:
+    """K1's three launches against their plain versions on both curves,
+    the sweep that sets the crossover, and the reduces against the
+    per-level launches they replace; returns the three kernel-table
+    rows."""
+    from reef_tpu_torch.ec import padd as PD
+    t0 = time.perf_counter()
+    B = PADD_LANES
+    cross = PD.THREAD_MIN_B
+    sizes = sorted(b for b in set(PADD_CHECK_B) | {cross - 1, cross,
+                                                   cross + 1, B} if b <= B)
+    errs = {"padd": [], "padd_spread": [], "padd_reduce": []}
+    res, red, pallas = {}, {}, None
+    for ck in curves:
+        cv = ck.curve
+        P, Q = padd_pairs(torch, ck, dev, B, rnd)
+        want = PD.padd_soa_plain(ck, P, Q)
+        got = PD.padd_soa(ck, P, Q, PD.THREAD)
+        torch.cuda.synchronize()
+        aff = ck.to_affine(got[:, :, :8].permute(2, 0, 1))
+        Pa = ck.to_affine(P[:, :, :8].permute(2, 0, 1))
+        Qa = ck.to_affine(Q[:, :, :8].permute(2, 0, 1))
+        require(aff == [cv.add(a, b) for a, b in zip(Pa, Qa)],
+                f"padd {cv.name}: lanes 0..7 disagree with the curve")
+        require(aff[0] is None and aff[4] is None,
+                f"padd {cv.name}: 0 + 0 or P + (-P) is not the identity")
+        for Bs in sizes:
+            p, q = P[..., :Bs].contiguous(), Q[..., :Bs].contiguous()
+            for path, name in ((PD.THREAD, "padd"),
+                               (PD.SPREAD, "padd_spread")):
+                errs[name].append(max_err(PD.padd_soa(ck, p, q, path),
+                                          want[..., :Bs]))
+                require(errs[name][-1] == 0, f"padd {cv.name} B={Bs} path "
+                        f"{path}: kernel != plain (max {errs[name][-1]})")
+        # the reduces at the MSM's shapes, over sums with the special lanes
+        for shape, (A, L, C, has_acc) in REDUCE_SHAPES.items():
+            idx = torch.arange(A * L * C, device=dev) * 7 % B
+            X = want[:, :, idx].reshape(3, 8, A, L, C).contiguous()
+            acc = (want[:, :, idx[:A * C].flip(0)].reshape(3, 8, A, C)
+                   .contiguous() if has_acc else None)
+            plain = PD.padd_reduce_plain(ck, X, acc)
+            errs["padd_reduce"].append(max_err(PD.padd_reduce(ck, X, acc),
+                                               plain))
+            require(errs["padd_reduce"][-1] == 0, f"padd_reduce {cv.name} "
+                    f"{shape}: kernel != per-level loop")
+            if cv.name == "pallas":
+                # against the per-level launches it replaced: one K1 add
+                # launch (THREAD, or routed) of contiguous copies a level
+                red[shape] = {
+                    "ms": device_ms(torch, lambda: PD.padd_reduce(ck, X,
+                                                                  acc)),
+                    "per_level_thread_ms": device_ms(
+                        torch, lambda: PD.padd_reduce_plain(
+                            ck, X, acc, partial(PD.padd_soa,
+                                                path=PD.THREAD))),
+                    "per_level_routed_ms": device_ms(
+                        torch, lambda: PD.padd_reduce_plain(
+                            ck, X, acc, PD.padd_soa)),
+                    "plain_ms": cuda_ms(torch, lambda: PD.padd_reduce_plain(
+                        ck, X, acc), reps=1)}
+        res[cv.name] = {
+            "ms": cuda_ms(torch, lambda: PD.padd_soa(ck, P, Q, PD.THREAD),
+                          reps=20),
+            "plain_ms": cuda_ms(torch, lambda: PD.padd_soa_plain(ck, P, Q),
+                                reps=2)}
+        if cv.name == "pallas":
+            pallas = (ck, P, Q)
+    # the sweep that set THREAD_MIN_B: both add launches on Pallas
+    ck, P, Q = pallas
+    sweep = {}
+    for k in range(PADD_SWEEP_LOG + 1):
+        p, q = P[..., :1 << k].contiguous(), Q[..., :1 << k].contiguous()
+        sweep[str(1 << k)] = [device_ms(torch, lambda: PD.padd_soa(
+            ck, p, q, path)) for path in (PD.THREAD, PD.SPREAD)]
+    Bs = PADD_CHECK_B[-1]
+    p, q = P[..., :Bs].contiguous(), Q[..., :Bs].contiguous()
+    spread_ms = device_ms(torch, lambda: PD.padd_soa(ck, p, q, PD.SPREAD))
+    spread_plain = cuda_ms(torch, lambda: PD.padd_soa_plain(ck, p, q),
+                           reps=2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    emit("padd", t0, lanes=B, checked_lanes=sizes,
+         thread_min_b=PD.THREAD_MIN_B, reduce=red,
+         reduce_plan={shape: PD.reduce_plan(A * C, L, has_acc, sms)
+                      for shape, (A, L, C, has_acc)
+                      in REDUCE_SHAPES.items()},
+         sweep_ms_thread_spread=sweep, **res)
+    mads = MULS_PER_PADD * MADS_PER_MUL
+    common = {"route": "cuda", "source": "reef_tpu_torch/csrc/padd.cu",
+              "replaces": "reef_tpu/ec/pallas_ec.py:151", "library_ms": None}
+    bms, by = bound_ms(B * 3 * 96, B * mads)
+    sbms, sby = bound_ms(Bs * 3 * 96, Bs * mads)
+    rows = {
+        "padd": {"name": "padd", **common,
+                 "max_abs_err": max(errs["padd"]),
+                 "ms": res["pallas"]["ms"],
+                 "plain_ms": res["pallas"]["plain_ms"],
+                 "bound_ms": bms, "bound_by": by,
+                 "int_bound_ms": int_bound_ms(B * mads),
+                 "shape": f"(3, 8, {B}) int32, Pallas, the THREAD launch; "
+                          f"launches: every K1 launch"},
+        "padd_spread": {"name": "padd_spread", **common,
+                        "max_abs_err": max(errs["padd_spread"]),
+                        "ms": spread_ms, "plain_ms": spread_plain,
+                        "bound_ms": sbms, "bound_by": sby,
+                        "int_bound_ms": int_bound_ms(Bs * mads),
+                        "shape": f"(3, 8, {Bs}) int32, Pallas, the SPREAD "
+                                 f"launch (six threads an add)"}}
+    shapes = {}
+    for shape, (A, L, C, has_acc) in REDUCE_SHAPES.items():
+        adds = A * C * (L - 1 + has_acc)
+        nb = (A * L * C + A * C * (1 + has_acc)) * 96
+        b_ms, b_by = bound_ms(nb, adds * mads)
+        shapes[shape] = {**red[shape], "bound_ms": b_ms, "bound_by": b_by,
+                         "int_bound_ms": int_bound_ms(adds * mads),
+                         "shape": f"(3, 8, {A}, {L}, {C}) -> (3, 8, {A}, "
+                                  f"{C}){' + acc' if has_acc else ''}"}
+    fen = shapes["fenwick"]
+    rows["padd_reduce"] = {
+        "name": "padd_reduce", **common,
+        "replaces": "reef_tpu/ec/pallas_ec.py:151 (one _padd_call a level "
+                    "of reef_tpu/ec/msm_v3.py:323-329 and :357)",
+        "max_abs_err": max(errs["padd_reduce"]), "ms": fen["ms"],
+        "plain_ms": fen["plain_ms"], "bound_ms": fen["bound_ms"],
+        "bound_by": fen["bound_by"], "int_bound_ms": fen["int_bound_ms"],
+        "shape": fen["shape"] + ", Pallas (the Fenwick reduce)",
+        "shapes": shapes}
+    return rows
+
+
 def phase_tree(torch, dev, curves) -> dict:
     """K2 against its plain version at every cap of TREE_CHECK on its
     curves, all 32 windows, exact on every node; at TREE_CAP spot-checked
@@ -271,9 +492,9 @@ def phase_tree(torch, dev, curves) -> dict:
     emit("tree", t0, cap=TREE_CAP, checked_caps=TREE_CHECK, windows=W, **res)
     cap = TREE_CAP
     n_aff, n_full = W * cap // 2, W * (cap // 2 - 1)
-    bms, by = bound_ms(W * cap * 2 * 32 + W * (cap - 1) * 96,
-                       (n_aff * MULS_PER_AFFINE_ADD + n_full * MULS_PER_PADD)
-                       * MADS_PER_MUL)
+    tree_mads = ((n_aff * MULS_PER_AFFINE_ADD + n_full * MULS_PER_PADD)
+                 * MADS_PER_MUL)
+    bms, by = bound_ms(W * cap * 2 * 32 + W * (cap - 1) * 96, tree_mads)
     pallas = res["pallas"]
     return {
         "name": "msm_tree", "route": "cuda",
@@ -281,7 +502,7 @@ def phase_tree(torch, dev, curves) -> dict:
         "replaces": "reef_tpu/ec/msm_v3.py:182",
         "max_abs_err": max(errs), "ms": pallas["ms"],
         "plain_ms": pallas["plain_ms"], "bound_ms": bms, "bound_by": by,
-        "library_ms": None,
+        "int_bound_ms": int_bound_ms(tree_mads), "library_ms": None,
         "shape": f"(2, 8, {W}, {cap}) -> (3, 8, {W}, {cap}) int32, Pallas"}
 
 
@@ -362,6 +583,7 @@ def phase_poseidon(torch, dev) -> dict:
         "replaces": "reef_tpu/ops/poseidon_pallas.py:185",
         "max_abs_err": max(errs), "ms": ms9, "plain_ms": plain9,
         "bound_ms": bms9, "bound_by": by9, "library_ms": None,
+        "int_bound_ms": int_bound_ms(poseidon_muls(9) * MADS_PER_MUL),
         "shape": "(9, 8, 1) int32, Fq: a sumcheck round's sponge (the "
                  "SPREAD launch)",
         "t9_b1_thread_ms": thread9,
@@ -378,6 +600,7 @@ def phase_sumcheck(torch, dev, rnd) -> dict:
     from reef_tpu_torch.ops import limb
     from reef_tpu_torch.ops import sumcheck_kernel as K
     from reef_tpu_torch.ops.sumcheck_device import DeviceTableCache
+    from reef_tpu_torch.utils import cudabuild
     t0 = time.perf_counter()
     f, lf = F.FQ, limb.FQ
     routes = {}
@@ -415,7 +638,7 @@ def phase_sumcheck(torch, dev, rnd) -> dict:
     runs = {
         "sumcheck_coeffs": (lambda: K.coeffs(lf, *hv, st),
                             lambda: K.coeffs_plain(lf, *hv, st),
-                            4 * half * 32, 4 * half),
+                            4 * half * 32, 3 * half),
         "sumcheck_fold": (lambda: K.fold(lf, *hv, r),
                           lambda: K.fold_plain(lf, *hv, r),
                           6 * half * 32, 2 * half),
@@ -432,7 +655,8 @@ def phase_sumcheck(torch, dev, rnd) -> dict:
         ms = cuda_ms(torch, kern, reps=10)
         plain_ms = cuda_ms(torch, pl, reps=1)
         bms, by = bound_ms(nbytes, muls * MADS_PER_MUL)
-        res[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms}
+        res[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                     "int_bound_ms": int_bound_ms(muls * MADS_PER_MUL)}
         rows[name] = {
             "name": name, "route": "cuda",
             "source": "reef_tpu_torch/csrc/sumcheck.cu",
@@ -442,8 +666,31 @@ def phase_sumcheck(torch, dev, rnd) -> dict:
                          "pallas_call)"),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "int_bound_ms": res[name]["int_bound_ms"],
             "shape": f"(8, {2 * half}) int32 tables, half = {half}"}
-    emit("sumcheck", t0, **routes, half=half, **res)
+    # the coefficient launch at every round of a 2^(LOG+1)-entry sumcheck,
+    # with and without a sponge state: exact, one launch a round
+    rounds = []
+    for lh in range(SUMCHECK_KERNEL_LOG, -1, -1):
+        h = 1 << lh
+        hv = (T[:, :h], T[:, h:2 * h], E[:, :h], E[:, h:2 * h])
+        for state in (st, None):
+            before = cudabuild.launch_counts()["sumcheck_coeffs"]
+            got = K.coeffs(lf, *hv, state)
+            require(cudabuild.launch_counts()["sumcheck_coeffs"]
+                    == before + 1, f"coeffs half={h}: not one launch")
+            want = K.coeffs_plain(lf, *hv, state)
+            err = max(max_err(a, b) for a, b in zip(got, want)
+                      if b is not None)
+            require(err == 0, f"coeffs half={h}: kernel != plain "
+                    f"(max {err})")
+        rounds.append(device_ms(torch, lambda: K.coeffs(lf, *hv, st)))
+    rows["sumcheck_coeffs"].update(round_ms=rounds, sumcheck_ms=sum(rounds))
+    emit("sumcheck", t0, **routes, half=half, **res,
+         coeff_round_device_ms=rounds, coeff_sumcheck_device_ms=sum(rounds),
+         coeff_launches_per_round=1,
+         coeff_round_plan=[K.coeff_plan(1 << lh) for lh in
+                           range(SUMCHECK_KERNEL_LOG, -1, -1)])
     return rows
 
 
@@ -594,17 +841,17 @@ def phase_field(torch, dev) -> dict:
             "max_abs_err": max(r["mul_max_abs_err"] for r in res.values()),
             "ms": fq["mul_ms"], "plain_ms": fq["mul_plain_ms"],
             "bound_ms": mul_bms, "bound_by": mul_by,
-            "shape": f"(16, {B}) x (16, {B}) int64, Fq; launches per "
-                     f"v2 Pippenger MSM at 2^16"},
+            "int_bound_ms": int_bound_ms(B * MADS_PER_MUL),
+            "shape": f"(16, {B}) x (16, {B}) int64, Fq"},
         "mont_redc": {
             "name": "mont_redc", **common,
             "replaces": "reef_tpu/ops/pallas_field.py:184",
             "max_abs_err": max(r["redc_max_abs_err"] for r in res.values()),
             "ms": fq["redc_ms"], "plain_ms": fq["redc_plain_ms"],
             "bound_ms": redc_bms, "bound_by": redc_by,
+            "int_bound_ms": int_bound_ms(B * MADS_PER_REDC),
             "shape": f"(32, {B}) -> (16, {B}) int64, Fq, values in "
-                     f"[pR, 5p^2); launches per MXU Poseidon batch of "
-                     f"2^14 states"}}
+                     f"[pR, 5p^2)"}}
 
 
 @contextlib.contextmanager
@@ -630,10 +877,9 @@ def no_plain_products_on_card(phase: str):
             f"card (first batch {on_card[:1]})")
 
 
-def phase_pippenger(torch, dev, rnd) -> int:
+def phase_pippenger(torch, dev, rnd) -> None:
     """The v2 Pippenger MSM (ec/msm_pippenger.py, its products on K3)
-    against the native host MSM; returns K3's launches in the 2^16
-    Pallas MSM."""
+    against the native host MSM, with K3's launches in each."""
     from reef_tpu_torch.backend.commitment import PedersenGens
     from reef_tpu_torch.ec import msm_pippenger as mp
     from reef_tpu_torch.ec import native_msm
@@ -643,7 +889,7 @@ def phase_pippenger(torch, dev, rnd) -> int:
     from reef_tpu_torch.utils import cudabuild
     t0 = time.perf_counter()
     plain_mul = limb.mul
-    res, k3 = {}, None
+    res = {}
     for cv in (PALLAS, VESTA):
         n = PIPPENGER_N[cv.name]
         ck = kernels_for(cv)
@@ -659,8 +905,6 @@ def phase_pippenger(torch, dev, rnd) -> int:
             got = mp.msm_device(ck, scalars, basis)     # ends on the host
         secs = time.perf_counter() - t1
         launches = cudabuild.launch_counts()
-        if cv is PALLAS:
-            k3 = launches["mont_mul"]
         want = native_msm.msm_packed(cv, scalars, gens.packed_G(),
                                      handle=gens.native_basis())
         require(got == want, f"pippenger {cv.name}: device != native host")
@@ -672,13 +916,11 @@ def phase_pippenger(torch, dev, rnd) -> int:
                         "basis_upload_s": upload_s,
                         "k3_launches": launches["mont_mul"]}
     emit("pippenger", t0, chunk=mp.chunk_cap(), **res)
-    return k3
 
 
-def phase_mxu(torch, dev) -> int:
+def phase_mxu(torch, dev) -> None:
     """The MXU-formulated Poseidon under field_kernel.enabled(redc=True)
-    against K5 on the same states; returns K4's launches in a 2^14
-    batch."""
+    against K5 on the same states, with K3's and K4's launches."""
     from reef_tpu_torch.models.prover_step import random_elems
     from reef_tpu_torch.ops import field_kernel as FK
     from reef_tpu_torch.ops import limb, poseidon_device, poseidon_mxu
@@ -694,7 +936,7 @@ def phase_mxu(torch, dev) -> int:
         with FK.enabled(redc=True), no_plain_products_on_card("mxu"):
             return poseidon_mxu.permute(lf, X)
 
-    res, k4 = {}, None
+    res = {}
     for B in MXU_B:
         lf = limb.FQ
         X = states(5, B)
@@ -705,8 +947,6 @@ def phase_mxu(torch, dev) -> int:
         launches = cudabuild.launch_counts()
         require(launches["mont_mul"] > 0 and launches["mont_redc"] > 0,
                 f"mxu B={B}: K3 or K4 never launched ({launches})")
-        if B == MXU_B[0]:
-            k4 = launches["mont_redc"]
         err = max_err(got, poseidon_device.permute(lf, X))
         require(err == 0, f"mxu t=5 B={B}: != K5 (max {err})")
         ms = cuda_ms(torch, lambda: mxu(lf, X), reps=3)
@@ -725,12 +965,12 @@ def phase_mxu(torch, dev) -> int:
     require((limb.mul, limb.redc_cols) == plain,
             "mxu: the field-kernel hook outlived its block")
     emit("mxu", t0, t9_states=MXU_T9_B, **res)
-    return k4
 
 
 def phase_msm_aux(torch, dev, rnd) -> None:
     """The binary msm_device and msm_pallas, both with their point adds
-    on K1, against the native host MSM; both are off-path."""
+    on K1, against the native host MSM; both are off-path, and their K1
+    launches (SPREAD ones too: the e2e makes none) are this phase's."""
     from reef_tpu_torch.backend.commitment import PedersenGens
     from reef_tpu_torch.ec import msm, native_msm
     from reef_tpu_torch.ec.padd import msm_pallas
@@ -738,7 +978,7 @@ def phase_msm_aux(torch, dev, rnd) -> None:
     t0 = time.perf_counter()
     ck = msm.pallas_kernels()
     cv = ck.curve
-    res = {}
+    res, spread = {}, 0
     for name, n in (("binary", AUX_BINARY_N), ("pallas", AUX_PALLAS_N)):
         gens = PedersenGens(cv, b"chip_smoke/msm_aux", n)
         scalars = [rnd.randrange(cv.order) for _ in range(n)]
@@ -752,12 +992,50 @@ def phase_msm_aux(torch, dev, rnd) -> None:
             got = ck.to_affine(msm_pallas(ck, scalars, gens.G, device=dev))
         secs = time.perf_counter() - t1
         k1 = cudabuild.launch_counts()["padd"]
+        spread += cudabuild.launch_counts()["padd_spread"]
         want = native_msm.msm_packed(cv, scalars, gens.packed_G(),
                                      handle=gens.native_basis())
         require(got == want, f"msm_aux {name}: device != native host MSM")
         require(k1 > 0, f"msm_aux {name}: K1 never launched")
         res[name] = {"n": n, "s": secs, "k1_launches": k1}
-    emit("msm_aux", t0, **res)
+    emit("msm_aux", t0, **res, k1_spread_launches=spread)
+
+
+# csrc kernel function -> its rows of the kernel table (the rows "padd"
+# and "poseidon" count every launch of K1 and K5, as their counters do)
+KERNEL_ROWS = {"padd_kernel": ("padd",),
+               "padd_spread_kernel": ("padd", "padd_spread"),
+               "padd_reduce_kernel": ("padd", "padd_reduce"),
+               "tree_level": ("msm_tree",),
+               "perm_kernel": ("poseidon",),
+               "perm_spread_kernel": ("poseidon",),
+               "coeff_kernel": ("sumcheck_coeffs",),
+               "fold_kernel": ("sumcheck_fold",),
+               "eq_kernel": ("sumcheck_eq",),
+               "mont_mul_kernel": ("mont_mul",),
+               "mont_redc_kernel": ("mont_redc",)}
+
+
+def e2e_profile(torch, prof):
+    """Device milliseconds of one profiled e2e by kernel function (every
+    kernel, copy and fill on the card), by kernel-table row, and the
+    microseconds the card was busy in all."""
+    import re
+    by_fn = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = re.search(r"([A-Za-z_]\w*)\s*[<(]", ev.name)
+        fn = m.group(1) if m else ev.name
+        by_fn[fn] = by_fn.get(fn, 0.0) + ev.time_range.elapsed_us()
+    per_e2e = {}
+    for fn, us in by_fn.items():
+        for row in KERNEL_ROWS.get(fn, ()):
+            per_e2e[row] = per_e2e.get(row, 0.0) + us / 1e3
+    busy = sum(by_fn.values())
+    return ({k: v / 1e3 for k, v in sorted(by_fn.items(),
+                                           key=lambda kv: -kv[1])},
+            per_e2e, busy)
 
 
 def main() -> int:
@@ -770,7 +1048,7 @@ def main() -> int:
     from reef_tpu_torch.backend.commitment import PedersenGens
     from reef_tpu_torch.ec import msm_v3, native_msm
     from reef_tpu_torch.ec.msm import pallas_kernels, vesta_kernels
-    from reef_tpu_torch.ec.padd import padd_soa, padd_soa_plain
+    from reef_tpu_torch.ec.padd import padd_reduce_plain, padd_soa_plain
     from reef_tpu_torch.utils import cudabuild, device, nativebuild
 
     dev = device.select("cuda")
@@ -780,7 +1058,12 @@ def main() -> int:
     # ---- env -------------------------------------------------------------
     t0 = time.perf_counter()
     smi = nvidia_smi()
-    emit("env", t0, nvidia_smi=smi, torch=torch.__version__,
+    SM_CLOCK_MHZ[0] = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.split()[0])
+    emit("env", t0, nvidia_smi=smi, sm_clock_max_mhz=SM_CLOCK_MHZ[0],
+         torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
 
@@ -810,54 +1093,7 @@ def main() -> int:
     curves = [pallas_kernels(), vesta_kernels()]
 
     # ---- padd (K1) -------------------------------------------------------
-    t0 = time.perf_counter()
-    B = PADD_LANES
-    res = {}
-    for ck in curves:
-        cv = ck.curve
-        gens = PedersenGens(cv, b"chip_smoke/padd", B).G
-        A = points_of(ck, gens, dev, torch)
-        perm = list(range(B))
-        rnd.shuffle(perm)
-        Bp = points_of(ck, [gens[i] for i in perm], dev, torch)
-        # general projective inputs (Z != 1): sums of affine points
-        P = padd_soa_plain(ck, A, Bp)
-        Q = padd_soa_plain(ck, Bp, padd_soa_plain(ck, A, A))
-        # special lanes: 0 + 0, 0 + Q, P + 0, P + P, P + (-P)
-        ident = ck.ident_t(dev)
-        P[:, :, 0] = ident
-        Q[:, :, 0] = ident
-        P[:, :, 1] = ident
-        Q[:, :, 2] = ident
-        Q[:, :, 3] = P[:, :, 3]
-        Q[:, :, 4] = P[:, :, 4]
-        y4 = ck.lf.decode32(P[1, :, 4:5])[0]
-        Q[1, :, 4] = ck.lf.encode32([(-y4) % cv.p], dev)[:, 0]  # (X:-Y:Z)
-        got = padd_soa(ck, P, Q)
-        want = padd_soa_plain(ck, P, Q)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        require(err == 0, f"padd {cv.name}: kernel != plain (max {err})")
-        aff = ck.to_affine(got[:, :, :8].permute(2, 0, 1))
-        Pa = ck.to_affine(P[:, :, :8].permute(2, 0, 1))
-        Qa = ck.to_affine(Q[:, :, :8].permute(2, 0, 1))
-        require(aff == [cv.add(a, b) for a, b in zip(Pa, Qa)],
-                f"padd {cv.name}: lanes 0..7 disagree with the curve")
-        require(aff[0] is None and aff[4] is None,
-                f"padd {cv.name}: 0 + 0 or P + (-P) is not the identity")
-        ms = cuda_ms(torch, lambda: padd_soa(ck, P, Q), reps=20)
-        plain_ms = cuda_ms(torch, lambda: padd_soa_plain(ck, P, Q), reps=2)
-        res[cv.name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
-    emit("padd", t0, lanes=B, **res)
-    bms, by = bound_ms(B * 3 * 96, B * MULS_PER_PADD * MADS_PER_MUL)
-    kernels["padd"] = {
-        "name": "padd", "route": "cuda", "source":
-            "reef_tpu_torch/csrc/padd.cu",
-        "replaces": "reef_tpu/ec/pallas_ec.py:151",
-        "max_abs_err": max(r["max_abs_err"] for r in res.values()),
-        "ms": res["pallas"]["ms"], "plain_ms": res["pallas"]["plain_ms"],
-        "bound_ms": bms, "bound_by": by, "library_ms": None,
-        "shape": f"(3, 8, {B}) int32, Pallas"}
+    kernels.update(phase_padd(torch, dev, curves, rnd))
 
     # ---- tree (K2) -------------------------------------------------------
     kernels["msm_tree"] = phase_tree(torch, dev, curves)
@@ -894,7 +1130,7 @@ def main() -> int:
         .reshape(basis_p.n_chunks, basis_p.cap, 32)
     plain_chunk_ms = cuda_ms(torch, lambda: msm_v3.chunk_prefixes(
         ck, basis_p.arr[0], scb_p[0], acc, True, padd_soa_plain,
-        msm_v3.tree_levels_plain), reps=1)
+        msm_v3.tree_levels_plain, padd_reduce_plain), reps=1)
     kernel_chunk_ms = cuda_ms(torch, lambda: msm_v3.chunk_prefixes(
         ck, basis_p.arr[0], scb_p[0], acc, True), reps=3)
     # rows: R = 4 over a 4096-point basis
@@ -919,8 +1155,8 @@ def main() -> int:
 
     # ---- field (K3, K4), pippenger, mxu, msm_aux --------------------------
     kernels.update(phase_field(torch, dev))
-    off_path = {"mont_mul": phase_pippenger(torch, dev, rnd),
-                "mont_redc": phase_mxu(torch, dev)}
+    phase_pippenger(torch, dev, rnd)
+    phase_mxu(torch, dev)
     phase_msm_aux(torch, dev, rnd)
 
     # ---- e2e: the main path ----------------------------------------------
@@ -936,7 +1172,8 @@ def main() -> int:
     def timed(ck, scalars, points):
         t1 = time.perf_counter()
         out = orig(ck, scalars, points)      # ends in a copy to the host
-        msms.append((ck.curve.name, len(scalars), time.perf_counter() - t1))
+        msms.append((ck.curve.name, len(scalars), time.perf_counter() - t1,
+                     points.n_chunks))
         return out
 
     def timed_sc(lf, cache, *args):
@@ -1006,6 +1243,10 @@ def main() -> int:
         nl_runs["warm_host_routes"], nlookups[:] = list(nlookups), []
         warm_wall = e2e("1", "auto")
         nl_runs["warm"] = list(nlookups)
+        # once more on the card, under the profiler: device time by kernel
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            prof_wall = e2e("1", "auto")
     finally:
         msm_v3.msm_device_v3 = orig
         sumcheck_device.device_sumcheck_rounds = orig_sc
@@ -1013,6 +1254,28 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     require(all(launches[k] > 0 for k in E2E_KERNELS),
             f"e2e: a kernel of the main path never launched: {launches}")
+    # K1 only in its reduces, one a chunk and one an MSM; one coefficient
+    # launch a sumcheck round
+    reduces = sum(m[3] + 1 for m in msms)
+    require(launches["padd_reduce"] == launches["padd"] == reduces,
+            f"e2e: {launches['padd_reduce']} K1 reduces, {launches['padd']} "
+            f"K1 launches, for {reduces} chunks and MSMs")
+    require(launches["sumcheck_coeffs"] == sum(ell for ell, _ in sumchecks),
+            f"e2e: {launches['sumcheck_coeffs']} coefficient launches for "
+            f"the rounds of {sumchecks}")
+    by_fn, per_e2e, busy_us = e2e_profile(torch, prof)
+    method = "torch.profiler"
+    if not by_fn:
+        # no device activity traced: each of the two redesigned kernels'
+        # launch shapes alone, times its launches
+        method = "shape times x launches (no profiler trace)"
+        shp = kernels["padd_reduce"]["shapes"]
+        rounds = kernels["sumcheck_coeffs"]["round_ms"]
+        k1 = (shp["fenwick"]["ms"] * (reduces - len(msms))
+              + shp["digits"]["ms"] * len(msms))
+        per_e2e = {"padd": k1, "padd_reduce": k1,
+                   "sumcheck_coeffs": sum(sum(rounds[-ell:])
+                                          for ell, _ in sumchecks)}
     # the document table: size + EOF + EPSILON entries, padded to 2^ell
     doc_ell = (size + 1).bit_length()
     require(doc_ell in [ell for ell, _ in sumchecks]
@@ -1022,21 +1285,35 @@ def main() -> int:
             f"card ({sumchecks}, {launches})")
     emit("e2e", t0, doc_bytes=size, wall_s=wall, device_msms=len(msms),
          device_msm_sizes=[m[:2] for m in msms],
+         per_e2e_method=method, profiled_wall_s=prof_wall,
+         device_busy_ms=busy_us / 1e3,
+         device_busy_share=busy_us / 1e6 / prof_wall,
+         device_ms_by_function=by_fn,
          device_msm_s=sum(m[2] for m in msms),
          device_sumchecks=[s[0] for s in sumchecks],
          device_sumcheck_s=sum(s[1] for s in sumchecks),
          nlookup_prove_s=nl_runs, launches=launches,
          warm_wall_s=warm_wall, warm_host_routes_wall_s=host_wall)
 
+    # every row's launches are the e2e's (K3 and K4, and K1's SPREAD add,
+    # run off its path: their phases' lines give their launches there)
     for name, k in kernels.items():
-        k["launches"] = off_path.get(name, launches[name])
+        k["launches"] = launches[name]
+        k["per_e2e_ms"] = per_e2e.get(name)
     kernels["poseidon"]["spread_launches"] = launches["poseidon_spread"]
+    # the bound at the card's integer rate, beside the kernel table
+    int_bounds = {name: k.pop("int_bound_ms") for name, k in kernels.items()}
+    for shape, v in kernels["padd_reduce"]["shapes"].items():
+        int_bounds[f"padd_reduce {shape}"] = v.pop("int_bound_ms")
     table = [{**{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "per_e2e_ms", "shape")},
         **k} for k in kernels.values()]
     print(json.dumps({"total_seconds": round(time.perf_counter() - t_all,
                                              3)}), flush=True)
+    print(json.dumps({"int_bound_ms": int_bounds,
+                      "sm_clock_max_mhz": SM_CLOCK_MHZ[0]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,10 @@ between them is torch ops, as it was XLA ops on the TPU:
     4. assemble each digit's boundary prefix, the sum of the first
        count(>= d) sorted points, from at most log2(cap)+1 tree nodes
        (a Fenwick decomposition: one gather, then a pairwise reduce over
-       the level axis with K1, csrc/padd.cu);
-  then add the prefixes across chunks, sum them over the digit axis by
-  masked halving (the Pippenger identity sum_d d*B_d = sum_{d>=1}
+       the level axis, added to the running prefixes, in one K1 reduce
+       launch, csrc/padd.cu);
+  then sum the prefixes over the digit axis by masked halving (one more
+  K1 reduce launch; the Pippenger identity sum_d d*B_d = sum_{d>=1}
   prefix[count(>=d)-1]), and combine the 32 window sums on the host.
 
 The reference places points in bit-reversed order so that the TPU kernel
@@ -38,7 +39,7 @@ from ..ops import limb
 from ..utils import cudabuild
 from ..utils.device import resolve
 from .msm import CurveKernels
-from .padd import limb_join, limb_split, padd_soa
+from .padd import limb_join, limb_split, padd_reduce, padd_soa
 from .msm import padd as _padd16, padd_affine as _padd_affine16
 from .pasta import Point
 
@@ -49,6 +50,7 @@ DP = 256                  # padded digit axis
 TREE_MIN_CAP = 4096       # the tree kernel runs for chunks this wide
 
 PaddFn = Callable[[CurveKernels, torch.Tensor, torch.Tensor], torch.Tensor]
+ReduceFn = Callable[..., torch.Tensor]
 
 
 def scalars_to_bytes(scalars: List[int], order_mod: int) -> np.ndarray:
@@ -164,13 +166,13 @@ def _padd_nd(ck: CurveKernels, padd: PaddFn, A: torch.Tensor,
 
 def chunk_prefixes(ck: CurveKernels, pts: torch.Tensor, scb: torch.Tensor,
                    acc: torch.Tensor, use_tree: bool,
-                   padd: PaddFn = padd_soa,
-                   tree=tree_levels) -> torch.Tensor:
+                   padd: PaddFn = padd_soa, tree=tree_levels,
+                   reduce: ReduceFn = padd_reduce) -> torch.Tensor:
     """acc (3, 8, W, DP) + this chunk's boundary prefix sums.
 
     pts (3, 8, cap) int32 basis chunk; scb (cap, 32) uint8 scalar bytes.
-    `padd` and `tree` are the kernels' wrappers, or their plain versions
-    (to time the plain pipeline on the card)."""
+    `padd`, `tree` and `reduce` are the kernels' wrappers, or their plain
+    versions (to time the plain pipeline on the card)."""
     dev = pts.device
     cap = pts.shape[2]
     log = cap.bit_length() - 1
@@ -223,25 +225,21 @@ def chunk_prefixes(ck: CurveKernels, pts: torch.Tensor, scb: torch.Tensor,
         pad = ident[:, :, None, None, None].expand(3, limb.N32, W,
                                                    L - log - 1, DP)
         g = torch.cat([g, pad], dim=3)
-    while L > 1:
-        L //= 2
-        g = _padd_nd(ck, padd, g[..., :L, :], g[..., L:, :])
-    return _padd_nd(ck, padd, acc, g[..., 0, :])
+    # halving over the level axis (node j plus node j + L/2), then acc +
+    return reduce(ck, g, acc)
 
 
 def halve_digits(ck: CurveKernels, acc: torch.Tensor,
-                 padd: PaddFn = padd_soa) -> torch.Tensor:
-    """Sum the DP boundary prefixes of each window by masked halving:
-    (3, 8, W, DP) -> (3, 8, W)."""
-    shift = DP // 2
-    while shift >= 1:
-        acc = _padd_nd(ck, padd, acc[..., :shift], acc[..., shift:2 * shift])
-        shift //= 2
-    return acc[..., 0]
+                 reduce: ReduceFn = padd_reduce) -> torch.Tensor:
+    """Sum the DP boundary prefixes of each window by masked halving
+    (prefix d plus prefix d + DP/2, level by level): (3, 8, W, DP) ->
+    (3, 8, W)."""
+    return reduce(ck, acc[:, :, :, :, None])[..., 0]
 
 
 def msm_windows(ck: CurveKernels, basis: "DeviceBasisV3", scb: torch.Tensor,
-                padd: PaddFn = padd_soa, tree=tree_levels) -> torch.Tensor:
+                padd: PaddFn = padd_soa, tree=tree_levels,
+                reduce: ReduceFn = padd_reduce) -> torch.Tensor:
     """Window sums (3, 8, W) of one MSM; scb (n2, 32) uint8 on the basis's
     device."""
     acc = ck.ident_t(basis.device)[:, :, None, None].expand(
@@ -250,8 +248,8 @@ def msm_windows(ck: CurveKernels, basis: "DeviceBasisV3", scb: torch.Tensor,
     scb = scb.reshape(basis.n_chunks, basis.cap, 32)
     for c in range(basis.n_chunks):
         acc = chunk_prefixes(ck, basis.arr[c], scb[c], acc, use_tree,
-                             padd, tree)
-    return halve_digits(ck, acc, padd)
+                             padd, tree, reduce)
+    return halve_digits(ck, acc, reduce)
 
 
 def combine_windows(ck: CurveKernels, accs) -> Point:

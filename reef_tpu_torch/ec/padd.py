@@ -4,16 +4,36 @@
 ec/pallas_ec.py: one RCB16 a = 0 complete addition per lane.  On a CUDA
 tensor it launches the hand-written kernel in csrc/padd.cu; on a CPU
 tensor it runs `padd_soa_plain`, the same arithmetic in plain torch.
-`msm_pallas` is the port of the same module's MSM over that kernel.
+`padd_reduce` sums a power-of-two axis of points by halving, as the
+reference's MSM does over its Fenwick levels and its digits with one
+`padd_soa` call a level, in one launch.  `msm_pallas` is the port of the
+same module's MSM over that kernel.
+
+K1 has two launches of the add: THREAD gives each lane one thread (wide
+batches), SPREAD gives each lane a group of six threads (narrow ones);
+`route` picks one by batch size, and the reduce picks one level by level
+(`reduce_plan`).  Every K1 launch adds one to the `padd` count, a SPREAD
+one to `padd_spread` as well, a reduce one to `padd_reduce`.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from ..ops import limb
 from ..utils import cudabuild
 from .msm import CurveKernels, padd, scalar_bits
+
+THREAD, SPREAD = 0, 1
+# the least batch that goes to THREAD: below it SPREAD is faster on an
+# H100 (the sweep of chip_smoke.py's padd phase: SPREAD 14.9 against 18.5
+# us at 16384 lanes, THREAD 20.8 against 26.0 at 32768)
+THREAD_MIN_B = 32768
+SPREAD_THREADS = 6       # threads a SPREAD add (csrc/padd.cu SPREAD)
+REDUCE_MAX_THREADS = 384
+REDUCE_MAX_L = 256       # the reduce's points fit 48 KB of shared memory
 
 
 def _check_points(name: str, t: torch.Tensor, coords: int) -> None:
@@ -42,26 +62,156 @@ def limb_join(P: torch.Tensor) -> torch.Tensor:
     return torch.stack([limb.join16(P[c]) for c in range(P.shape[0])])
 
 
-def padd_soa(ck: CurveKernels, P: torch.Tensor,
-             Q: torch.Tensor) -> torch.Tensor:
-    """(3, 8, B) + (3, 8, B) -> (3, 8, B) int32, lane by lane."""
-    _check_points("P", P, 3)
-    _check_points("Q", Q, 3)
-    if P.shape != Q.shape or P.device != Q.device:
-        raise ValueError("P and Q differ in shape or device")
-    if P.device.type == "cpu":
-        return padd_soa_plain(ck, P, Q)
-    if P.device.type != "cuda":
-        raise ValueError(f"padd_soa: unsupported device {P.device}")
+def route(B: int) -> int:
+    """The launch that adds a batch of B lanes."""
+    return SPREAD if B < THREAD_MIN_B else THREAD
+
+
+def _device(name: str, t: torch.Tensor) -> bool:
+    """True on a CUDA tensor, False on a CPU tensor, else raise."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return True
+
+
+def launch(ck: CurveKernels, P: torch.Tensor, Q: torch.Tensor,
+           path: int) -> torch.Tensor:
+    """K1's add by the launch `path` (THREAD or SPREAD) on checked
+    (3, 8, B) CUDA tensors; counts the launch."""
+    if path not in (THREAD, SPREAD):
+        raise ValueError(f"K1: no launch {path}")
     out = torch.empty_like(P)
     B = P.shape[2]
     if B:
         lib = cudabuild.library("padd")
         stream = torch.cuda.current_stream(P.device).cuda_stream
         err = lib.reef_padd(P.data_ptr(), Q.data_ptr(), out.data_ptr(), B,
-                            ck.lf.field_id, stream)
+                            ck.lf.field_id, path, stream)
         cudabuild.check(err, "reef_padd")
         cudabuild.count("padd")
+        if path == SPREAD:
+            cudabuild.count("padd_spread")
+    return out
+
+
+def padd_soa(ck: CurveKernels, P: torch.Tensor, Q: torch.Tensor,
+             path: Optional[int] = None) -> torch.Tensor:
+    """(3, 8, B) + (3, 8, B) -> (3, 8, B) int32, lane by lane; on the card
+    by the launch `path` (default `route(B)`)."""
+    _check_points("P", P, 3)
+    _check_points("Q", Q, 3)
+    if P.shape != Q.shape or P.device != Q.device:
+        raise ValueError("P and Q differ in shape or device")
+    if path is None:
+        path = route(P.shape[2])
+    if path not in (THREAD, SPREAD):
+        raise ValueError(f"padd_soa: no launch {path}")
+    if not _device("padd_soa", P):
+        return padd_soa_plain(ck, P, Q)
+    return launch(ck, P, Q, path)
+
+
+# ---------------------------------------------------------------------------
+# the halving reduce
+# ---------------------------------------------------------------------------
+
+def reduce_plan(n_out: int, L: int, acc: bool,
+                sms: int) -> Tuple[int, int, int]:
+    """(outputs a block, threads a block, spread mask) of the reduce of
+    n_out sums of L points (plus acc) on a card of `sms` SMs: level lev
+    (0 = the first halving, log2 L = the acc add) adds by SPREAD, bit lev
+    of the mask, where the level's adds over the whole grid are fewer
+    than THREAD_MIN_B, as `route` decides for one launch.  A block takes
+    enough outputs for 128 first-level adds; a grid under one block an SM
+    (latency-bound) gets up to six threads a first-level add."""
+    half = L // 2
+    gpb = max(1, 128 // half)
+    adds = [n_out * (half >> lev) for lev in range(L.bit_length() - 1)]
+    adds += [n_out] if acc else []
+    mask = sum(1 << lev for lev, n in enumerate(adds) if n < THREAD_MIN_B)
+    threads = 128
+    if mask and -(-n_out // gpb) < sms:
+        threads = max(128, min(REDUCE_MAX_THREADS,
+                               SPREAD_THREADS * gpb * half))
+    return gpb, threads, mask
+
+
+def _reduce_args(X: torch.Tensor, acc: Optional[torch.Tensor]):
+    """Check X (3, 8, A, L, C) and acc (3, 8, A, C); returns L."""
+    if X.dtype != torch.int32:
+        raise TypeError(f"padd_reduce: dtype {X.dtype}, expected int32")
+    if X.dim() != 5 or X.shape[0] != 3 or X.shape[1] != limb.N32:
+        raise ValueError(f"padd_reduce: shape {tuple(X.shape)}, expected "
+                         f"(3, {limb.N32}, A, L, C)")
+    L = X.shape[3]
+    if L < 2 or L & (L - 1) or L > REDUCE_MAX_L:
+        raise ValueError(f"padd_reduce: L = {L} is not a power of two in "
+                         f"[2, {REDUCE_MAX_L}]")
+    if acc is not None and (
+            acc.dtype != torch.int32 or not acc.is_contiguous()
+            or acc.shape != X.shape[:3] + X.shape[4:]
+            or acc.device != X.device):
+        raise ValueError(f"padd_reduce: acc {tuple(acc.shape)} is not a "
+                         f"contiguous int32 (3, {limb.N32}, A, C) tensor "
+                         f"beside X")
+    return L
+
+
+AddFn = Callable[[CurveKernels, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def padd_reduce_plain(ck: CurveKernels, X: torch.Tensor,
+                      acc: Optional[torch.Tensor] = None,
+                      add: AddFn = padd_soa_plain) -> torch.Tensor:
+    """The reduce kernel's plain version, on any device: one call of the
+    (3, 8, B) point add `add` a level over contiguous copies (with
+    `padd_soa` on the card, the one K1 launch a level that the reduce
+    kernel replaced)."""
+    L = _reduce_args(X, acc)
+    while L > 1:
+        L //= 2
+        A, B = X[..., :L, :], X[..., L:2 * L, :]
+        X = add(ck, A.reshape(3, limb.N32, -1).contiguous(),
+                B.reshape(3, limb.N32, -1).contiguous()).reshape(A.shape)
+    out = X[..., 0, :]
+    if acc is not None:
+        out = add(ck, acc.reshape(3, limb.N32, -1),
+                  out.reshape(3, limb.N32, -1).contiguous()
+                  ).reshape(acc.shape)
+    return out.contiguous()
+
+
+def padd_reduce(ck: CurveKernels, X: torch.Tensor,
+                acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(3, 8, A, L, C) -> (3, 8, A, C) int32: each (a, c) the sum of its L
+    points by halving (point j plus point j + L/2, level by level), plus
+    acc (3, 8, A, C) where given (acc + sum).  X may be any strided view
+    whose two leading axes are uniform rows; on the card one launch."""
+    L = _reduce_args(X, acc)
+    if X.stride(0) != limb.N32 * X.stride(1):
+        raise ValueError(f"padd_reduce: strides {X.stride()} do not make "
+                         f"uniform coordinate rows")
+    if not _device("padd_reduce", X):
+        return padd_reduce_plain(ck, X, acc)
+    _, _, A, _, C = X.shape
+    n_out = A * C
+    out = torch.empty((3, limb.N32, A, C), dtype=torch.int32,
+                      device=X.device)
+    if n_out:
+        sms = torch.cuda.get_device_properties(X.device) \
+            .multi_processor_count
+        gpb, threads, mask = reduce_plan(n_out, L, acc is not None, sms)
+        lib = cudabuild.library("padd")
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        err = lib.reef_padd_reduce(
+            X.data_ptr(), X.stride(1), n_out, C, X.stride(2), X.stride(4),
+            X.stride(3), L, 0 if acc is None else acc.data_ptr(),
+            out.data_ptr(), gpb, threads, mask, ck.lf.field_id, stream)
+        cudabuild.check(err, "reef_padd_reduce")
+        cudabuild.count("padd")
+        cudabuild.count("padd_reduce")
     return out
 
 

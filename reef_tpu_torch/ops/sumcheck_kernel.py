@@ -13,7 +13,8 @@ its kernel on CUDA tensors and runs its plain version, in the same module,
 on CPU tensors:
 
   coeffs  -> g = (xsq, x, con) as (3, 8, 1), and with a (t, 8, 1) sponge
-             state the state with con, x, xsq added into lanes 1, 2, 3;
+             state the state with con, x, xsq added into lanes 1, 2, 3,
+             in one launch (`coeff_plan`);
   fold    -> both tables folded by the challenge r, an (8, 1) row that
              stays on the device;
   eq_step -> one doubling step of the eq table's running-claim term.
@@ -84,7 +85,8 @@ def _absorb_plain(lf: LimbField, g: torch.Tensor,
 
 def coeffs_plain(lf: LimbField, t0, t1, e0, e1,
                  state: Optional[torch.Tensor] = None):
-    """The coefficient kernel's plain version, any device."""
+    """The coefficient kernel's plain version, any device: the reference's
+    four products a pair (the kernel computes x from three)."""
     a0, a1, b0, b1 = (limb.split32(x) for x in (t0, t1, e0, e1))
     ts = limb.sub(lf, a1, a0)
     es = limb.sub(lf, b1, b0)
@@ -94,6 +96,28 @@ def coeffs_plain(lf: LimbField, t0, t1, e0, e1,
     con = _tree_sum(lf, limb.mul(lf, a0, b0))
     g = torch.stack([limb.join16(v) for v in (xsq, x, con)])
     return g, (None if state is None else _absorb_plain(lf, g, state))
+
+
+def coeff_plan(half: int) -> Tuple[int, int]:
+    """(grid, threads) of the coefficient launch over `half` pairs: blocks
+    of THREADS while there are pairs for them, at most MAX_BLOCKS (the
+    rest by grid stride); below THREADS pairs one block of as many whole
+    warps as the pairs need."""
+    threads = min(THREADS, -(-half // 32) * 32)
+    return min(-(-half // threads), MAX_BLOCKS), threads
+
+
+_TICKETS = {}
+
+
+def _ticket(device: torch.device) -> torch.Tensor:
+    """The coefficient launch's block counter on `device` (one int32, 0
+    between launches: the last block resets it)."""
+    t = _TICKETS.get(device)
+    if t is None:
+        t = _TICKETS[device] = torch.zeros(1, dtype=torch.int32,
+                                           device=device)
+    return t
 
 
 def coeffs(lf: LimbField, t0: torch.Tensor, t1: torch.Tensor,
@@ -124,24 +148,20 @@ def coeffs(lf: LimbField, t0: torch.Tensor, t1: torch.Tensor,
     st_out = None if state is None else torch.empty_like(state)
     st_args = ((0, 0, 0) if state is None
                else (state.data_ptr(), st_out.data_ptr(), state.shape[0]))
-    grid = min(-(-half // THREADS), MAX_BLOCKS)
-    partial = None
+    grid, threads = coeff_plan(half)
+    partial = ticket = None
     if grid > 1:
         partial = torch.empty((3, limb.N32, grid), dtype=torch.int32,
                               device=t0.device)
+        ticket = _ticket(t0.device)
     err = lib.reef_sc_coeffs(
         t0.data_ptr(), t1.data_ptr(), e0.data_ptr(), e1.data_ptr(),
-        t0.stride(0), e0.stride(0), half, 1, grid,
-        0 if partial is None else partial.data_ptr(), g.data_ptr(),
-        *st_args, lf.field_id, stream)
+        t0.stride(0), e0.stride(0), half, grid, threads,
+        *((0, 0) if partial is None else (partial.data_ptr(),
+                                          ticket.data_ptr())),
+        g.data_ptr(), *st_args, lf.field_id, stream)
     cudabuild.check(err, "reef_sc_coeffs")
     cudabuild.count("sumcheck_coeffs")
-    if partial is not None:
-        err = lib.reef_sc_coeffs(
-            partial.data_ptr(), 0, 0, 0, 0, 0, grid, 0, 1, 0, g.data_ptr(),
-            *st_args, lf.field_id, stream)
-        cudabuild.check(err, "reef_sc_coeffs")
-        cudabuild.count("sumcheck_coeffs")
     return g, st_out
 
 

@@ -32,19 +32,22 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(
 FLAGS = ["-O3", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+P, I, L, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
 
 # kernel library -> (source, {exported function: argtypes}); every
 # function returns a cudaError_t as an int
 LIBS = {
-    "padd": ("padd.cu", {"reef_padd": [P, P, P, I, I, P]}),
+    "padd": ("padd.cu", {
+        "reef_padd": [P, P, P, I, I, I, P],
+        "reef_padd_reduce": [P, L, L, L, L, L, L, I, P, P, I, I, U, I, P]}),
     "msm_tree": ("msm_tree.cu", {"reef_tree_levels": [P, P, I, I, I, I, I,
                                                       P]}),
     "poseidon": ("poseidon.cu", {
         "reef_poseidon_set_consts": [I, I, P, P],
         "reef_poseidon": [P, P, I, I, I, I, P]}),
     "sumcheck": ("sumcheck.cu", {
-        "reef_sc_coeffs": [P, P, P, P, L, L, L, I, I, P, P, P, P, I, I, P],
+        "reef_sc_coeffs": [P, P, P, P, L, L, L, I, I, P, P, P, P, P, I, I,
+                           P],
         "reef_sc_fold": [P, P, P, P, L, L, P, L, P, P, L, I, P],
         "reef_sc_eq_step": [P, L, P, L, P, P, I, P]}),
     "mont": ("mont.cu", {"reef_mont_mul": [P, P, P, L, I, P],
@@ -52,11 +55,13 @@ LIBS = {
 }
 
 # the kernels whose launches are counted (the K6 library has three, the
-# K3/K4 library two); "poseidon" counts every K5 launch, "poseidon_spread"
-# those of its block-per-state kernel
-KERNELS = ("padd", "msm_tree", "poseidon", "poseidon_spread",
-           "sumcheck_coeffs", "sumcheck_fold", "sumcheck_eq", "mont_mul",
-           "mont_redc")
+# K3/K4 library two); "padd" counts every K1 launch, "padd_spread" those
+# of its group-per-add kernel and "padd_reduce" its halving reduces;
+# "poseidon" counts every K5 launch, "poseidon_spread" those of its
+# block-per-state kernel
+KERNELS = ("padd", "padd_spread", "padd_reduce", "msm_tree", "poseidon",
+           "poseidon_spread", "sumcheck_coeffs", "sumcheck_fold",
+           "sumcheck_eq", "mont_mul", "mont_redc")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _COUNTS: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -1,7 +1,8 @@
 """reef_tpu_torch device MSM (ec/msm_v3.py) and its routing, on the CPU.
 
 On CPU tensors the MSM runs the kernels' plain versions through the same
-sort / count / gather / Fenwick glue that drives the kernels on the card.
+sort / count / gather / Fenwick glue that drives the kernels on the card,
+with one halving reduce a chunk and one an MSM.
 Its results must equal the JAX package's python-int and native host MSMs
 exactly.  `convert.py` must carry the JAX package's device basis over to
 the port's.
@@ -72,6 +73,34 @@ def test_msm_tree_path_matches_reference(name, cpu_engine):
     got = msm_v3.msm_device_v3(ck, scalars, basis)
     assert got == ref_cv.msm(scalars, pts)
     assert got == _native(ref_cv, scalars, pts)
+
+
+@pytest.mark.parametrize("name", sorted(CURVES))
+@pytest.mark.parametrize("cap,n", [(128, 200), (4096, 3000)])
+def test_msm_sums_through_one_reduce_a_chunk(name, cap, n, cpu_engine):
+    """msm_windows makes one padd_reduce call a chunk (its Fenwick levels,
+    padded to a power of two, with the running prefixes as acc) and one
+    over the digits, and its window sums give the reference's MSM (at
+    cap 128 over two chunks, below the tree kernel's cap)."""
+    from reef_tpu_torch.ec.padd import padd_reduce
+    ck, ref_cv = CURVES[name][0](), CURVES[name][1]
+    pts = _points(ck.curve, n, 23)
+    scalars = _scalars(ck.curve, n, 24)
+    basis = msm_v3.DeviceBasisV3(ck, pts, cap=cap)
+    scb = msm_v3.upload_scalars(basis, [scalars])[0]
+    calls = []
+
+    def spy(c, X, acc=None):
+        calls.append((tuple(X.shape), acc is not None))
+        return padd_reduce(c, X, acc)
+
+    accs = msm_v3.msm_windows(ck, basis, scb, reduce=spy)
+    L = 1 << (cap.bit_length() - 1).bit_length()
+    W, DP = msm_v3.N_WINDOWS, msm_v3.DP
+    assert basis.n_chunks == (2 if cap == 128 else 1)
+    assert calls == [((3, 8, W, L, DP), True)] * basis.n_chunks + \
+        [((3, 8, W, DP, 1), False)]
+    assert msm_v3.combine_windows(ck, accs) == ref_cv.msm(scalars, pts)
 
 
 @pytest.mark.parametrize("log", range(1, 17))

@@ -8,7 +8,9 @@ next running claim and the sponge state afterwards.  The flagship step's
 round is held to big-int python; the witness routing to the device
 cache follows REEF_DEVICE_SUMCHECK; and a proof made with the document
 sumcheck forced onto the device route verifies under the JAX package's
-verifier.  Tests marked `cuda` hold the K6 kernels against their plain
+verifier.  The coefficient kernel's three-product form must equal the
+reference's four-product sums, and its launch plan must make one launch
+a round.  Tests marked `cuda` hold the K6 kernels against their plain
 versions and skip where torch sees no CUDA device.
 """
 
@@ -200,6 +202,84 @@ def _rows(n, seed):
     return prover_step.random_elems((n,), g, "cpu")
 
 
+def _three_products(lf, t0, t1, e0, e1):
+    """The coefficient kernel's arithmetic in plain limb ops: xsq = sum ts
+    es, con = sum t0 e0, x = sum t1 e1 - xsq - con."""
+    a0, a1, b0, b1 = (limb.split32(x) for x in (t0, t1, e0, e1))
+    xsq = K._tree_sum(lf, limb.mul(lf, limb.sub(lf, a1, a0),
+                                   limb.sub(lf, b1, b0)))
+    con = K._tree_sum(lf, limb.mul(lf, a0, b0))
+    x = limb.sub(lf, limb.sub(lf, K._tree_sum(lf, limb.mul(lf, a1, b1)),
+                              xsq), con)
+    return torch.stack([limb.join16(v) for v in (xsq, x, con)])
+
+
+@pytest.mark.parametrize("lf", [limb.FQ, limb.FP], ids=["fq", "fp"])
+@pytest.mark.parametrize("half", [1, 2, 256])
+@pytest.mark.parametrize("table", ["random", "p-1"])
+def test_three_products_match_four(lf, half, table):
+    """x = sum t1 e1 - xsq - con equals the reference's sum (es t0 + ts
+    e0) in python ints, and the kernel's three-product arithmetic gives
+    coeffs_plain's four-product limbs, on random tables and on tables of
+    p - 1 (every sum and difference wraps)."""
+    p = lf.p_int
+    if table == "random":
+        rows = [_rows(2 * half, 31), _rows(2 * half, 32)]
+    else:
+        rows = [lf.encode32([p - 1] * (2 * half), "cpu")] * 2
+    T, E = rows
+    halves = (T[:, :half], T[:, half:], E[:, :half], E[:, half:])
+    t0, t1, e0, e1 = (lf.decode32(h) for h in halves)
+    ts = [(b - a) % p for a, b in zip(t0, t1)]
+    es = [(b - a) % p for a, b in zip(e0, e1)]
+    xsq = sum(a * b for a, b in zip(ts, es)) % p
+    con = sum(a * b for a, b in zip(t0, e0)) % p
+    four = sum(e * a + d * b for e, a, d, b in zip(es, t0, ts, e0)) % p
+    assert (sum(a * b for a, b in zip(t1, e1)) - xsq - con) % p == four
+    g, _ = K.coeffs_plain(lf, *halves)
+    assert [lf.decode32(g[c])[0] for c in range(3)] == [xsq, four, con]
+    assert torch.equal(_three_products(lf, *halves), g)
+
+
+class _Stream:
+    cuda_stream = 0
+
+
+@pytest.mark.parametrize("log_half", range(20))
+def test_coeff_plan_is_one_launch_a_round(log_half, monkeypatch):
+    """At every half of a 2^20-entry sumcheck the coefficient pass is one
+    launch, of whole warps, within the kernel's block and the plan's
+    grid, with a partials buffer and the ticket exactly when it has more
+    than one block (a stand-in library records the call)."""
+    half = 1 << log_half
+    grid, threads = K.coeff_plan(half)
+    assert 32 <= threads <= K.THREADS and threads % 32 == 0
+    assert 1 <= grid <= K.MAX_BLOCKS
+    assert grid == 1 or threads == K.THREADS
+    assert grid * threads >= min(half, K.MAX_BLOCKS * K.THREADS)
+    if grid == 1:
+        assert threads >= half or threads == K.THREADS
+    calls = []
+
+    class Lib:
+        def reef_sc_coeffs(self, t0, t1, e0, e1, st, se, n, grid_, threads_,
+                           partial, ticket, g, si, so, t, field, stream):
+            calls.append((n, grid_, threads_, partial != 0, ticket != 0,
+                          so != 0, t))
+            return 0
+
+    monkeypatch.setattr(K.cudabuild, "library", lambda name: Lib())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream)
+    monkeypatch.setattr(K, "_cuda", lambda name, t: True)
+    lf = limb.FQ
+    T = torch.zeros((8, 2 * half), dtype=torch.int32)
+    st = torch.zeros((9, 8, 1), dtype=torch.int32)
+    before = cudabuild.launch_counts()["sumcheck_coeffs"]
+    K.coeffs(lf, T[:, :half], T[:, half:], T[:, :half], T[:, half:], st)
+    assert cudabuild.launch_counts()["sumcheck_coeffs"] == before + 1
+    assert calls == [(half, grid, threads, grid > 1, grid > 1, True, 9)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("half", [1, 256, 1 << 12])
 def test_kernels_match_plain_on_card(half):
@@ -223,7 +303,29 @@ def test_kernels_match_plain_on_card(half):
     assert torch.equal(g.cpu(), gp) and torch.equal(s.cpu(), sp)
     assert torch.equal(fk[0].cpu(), fp[0]) and torch.equal(fk[1].cpu(), fp[1])
     assert torch.equal(ek.cpu(), K.eq_step_plain(lf, T[:, :half], r, E))
-    assert after["sumcheck_coeffs"] - before["sumcheck_coeffs"] == \
-        (1 if half <= K.THREADS else 2)
+    assert after["sumcheck_coeffs"] == before["sumcheck_coeffs"] + 1
     assert after["sumcheck_fold"] == before["sumcheck_fold"] + 1
     assert after["sumcheck_eq"] == before["sumcheck_eq"] + 1
+
+
+@pytest.mark.cuda
+def test_coeffs_match_plain_at_every_round_on_card():
+    """The coefficient launch at every half of a 2^20-entry sumcheck,
+    with and without a sponge state, exactly against the plain version,
+    one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lf, dev = limb.FQ, torch.device("cuda")
+    T, E = _rows(1 << 20, 5).to(dev), _rows(1 << 20, 6).to(dev)
+    st = _rows(9, 7).T.reshape(9, 8, 1).contiguous().to(dev)
+    for log_half in range(19, -1, -1):
+        h = 1 << log_half
+        halves = (T[:, :h], T[:, h:2 * h], E[:, :h], E[:, h:2 * h])
+        for state in (st, None):
+            before = cudabuild.launch_counts()["sumcheck_coeffs"]
+            g, s = K.coeffs(lf, *halves, state)
+            torch.cuda.synchronize()
+            assert cudabuild.launch_counts()["sumcheck_coeffs"] == before + 1
+            gp, sp = K.coeffs_plain(lf, *halves, state)
+            assert torch.equal(g, gp)
+            assert (s is None and sp is None) or torch.equal(s, sp)

@@ -4,8 +4,9 @@
     python3 tools/count_chunk_ops.py [--repo DIR] [--cap 4096]
 
 Runs `ec/msm_v3.py` `chunk_prefixes` of the checkout DIR (default: the
-one that holds this script) once on CPU tensors, with its two kernels
-(the tree and the point add) replaced by stubs that issue nothing, and
+one that holds this script) once on CPU tensors, with its kernels (the
+tree, the point add and, where the checkout has it, the halving reduce)
+replaced by stubs that issue nothing, and
 counts every aten operation the glue dispatches (views included).  On a
 card each non-view operation is one or more kernel launches, and the
 chunk is bound by its host's launches, so this count is what the glue
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import inspect
 import json
 import os
 import sys
@@ -61,8 +63,14 @@ def main() -> int:
     def padd(c, a, b):
         return a
 
+    def reduce(c, X, acc=None):
+        return acc
+
+    kernels = {"padd": padd, "tree": tree}
+    if "reduce" in inspect.signature(msm_v3.chunk_prefixes).parameters:
+        kernels["reduce"] = reduce
     with Count() as counted:
-        msm_v3.chunk_prefixes(ck, basis.arr[0], scb, acc, True, padd, tree)
+        msm_v3.chunk_prefixes(ck, basis.arr[0], scb, acc, True, **kernels)
     print(json.dumps({"repo": os.path.abspath(args.repo), "cap": cap,
                       "aten_ops": sum(counted.ops.values()),
                       "most_common": counted.ops.most_common(8)}))

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Time one chunk of the device MSM and its tree kernel on one CUDA card.
+"""Time one chunk of the device MSM, its kernels and K6's coefficient
+rounds on one CUDA card.
 
     python3 tools/msm_chunk_ab.py [--repo DIR] [--rounds N]
 
 Imports reef_tpu_torch from DIR (default: the checkout that holds this
 script), so that one machine can time two checkouts of the port in turns
-(A B B A) on the same card and host.  Builds the two kernels the chunk
-runs (K1 csrc/padd.cu and K2 csrc/msm_tree.cu) into DIR's build directory.
+(A B B A) on the same card and host.  Builds the kernels it runs (K1
+csrc/padd.cu, K2 csrc/msm_tree.cu, K6 csrc/sumcheck.cu) into DIR's build
+directory.
 
 The chunk is `ec/msm_v3.py` `chunk_prefixes` at cap 16384 on Pallas, all
 32 windows, as the commit MSM runs it: sort, counts, gather, K2, the
@@ -19,7 +21,14 @@ Prints one JSON line: the card's name and power limit (nvidia-smi), the
 chunk's ms a call for each round (CUDA events over 5 calls), the host's
 wall ms to issue one (5 calls, no wait), K2's ms a call (`tree_levels`,
 10 calls), the host probe, and a digest of the chunk's output, which
-must agree between checkouts.
+must agree between checkouts.  Then the device time (`device_ms`: the
+launches queued behind a sleep on the card, so that the host's issue
+rate does not show) of the MSM's two K1 reduces as the checkout runs
+them (the Fenwick levels of a chunk with its acc add, and the digit
+halving: one `padd_reduce` launch each where the checkout has it, else
+one K1 launch a level), of each such level launch alone, and of K6's
+coefficient pass at every round of a 2^20-entry sumcheck (half = 2^19
+.. 1, with a t = 9 sponge state), with digests of their outputs.
 """
 
 from __future__ import annotations
@@ -32,27 +41,95 @@ import subprocess
 import sys
 import time
 
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
+from chip_smoke import cuda_ms, device_ms  # noqa: E402  (this checkout's)
+
 CAP = 16384
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean milliseconds of fn() over `reps` runs after one warm run."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+def digest_of(ts) -> str:
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def kernel_times(torch, ck, basis, acc, dev) -> dict:
+    """K1's two MSM reduces and K6's coefficient rounds (see the module
+    docstring), by whichever launches the checkout has."""
+    from reef_tpu_torch.ec import msm_v3
+    from reef_tpu_torch.ec import padd as PD
+    from reef_tpu_torch.models.prover_step import random_elems
+    from reef_tpu_torch.ops import limb
+    from reef_tpu_torch.ops import sumcheck_kernel as K
+
+    W, DP, L = msm_v3.N_WINDOWS, msm_v3.DP, 16
+    pts = basis.arr[0]                                     # (3, 8, CAP)
+    idx = torch.arange(W * L * DP, device=dev) * 7 % CAP
+    fen = pts[:, :, idx].reshape(3, 8, W, L, DP).contiguous()
+
+    if hasattr(PD, "padd_reduce"):
+        def fenwick():
+            return PD.padd_reduce(ck, fen, acc)
+
+        def digits():
+            return PD.padd_reduce(ck, acc[..., None])[..., 0]
+
+        # the plain reduce over padd_soa: one K1 launch a level
+        def fenwick_levels():
+            return PD.padd_reduce_plain(ck, fen, acc, PD.padd_soa)
+
+        def digit_levels():
+            return PD.padd_reduce_plain(ck, acc[..., None], None,
+                                        PD.padd_soa)[..., 0]
+    else:
+        # a checkout before the reduce kernel: its own per-level launches
+        def fenwick_levels():
+            g, n = fen, L
+            while n > 1:
+                n //= 2
+                g = msm_v3._padd_nd(ck, PD.padd_soa, g[..., :n, :],
+                                    g[..., n:, :])
+            return msm_v3._padd_nd(ck, PD.padd_soa, acc, g[..., 0, :])
+
+        def digit_levels():
+            return msm_v3.halve_digits(ck, acc)
+        fenwick, digits = fenwick_levels, digit_levels
+    out = {"fenwick_ms": device_ms(torch, fenwick),
+           "digits_ms": device_ms(torch, digits),
+           "k1_digest": digest_of([fenwick(), digits()]),
+           "per_level_digest": digest_of([fenwick_levels(),
+                                          digit_levels()])}
+    # each per-level K1 launch of the MSM alone, by lanes
+    lanes = sorted({W * DP * n for n in (8, 4, 2, 1)} |
+                   {W * s for s in (128, 64, 32, 16, 8, 4, 2, 1)})
+    flat = fen.reshape(3, 8, -1)
+    out["padd_ms_by_lanes"] = {}
+    for B in lanes:
+        P, Q = flat[..., :B].contiguous(), flat[..., B:2 * B].contiguous()
+        out["padd_ms_by_lanes"][str(B)] = device_ms(
+            torch, lambda: PD.padd_soa(ck, P, Q))
+    # K6: a 2^20-entry sumcheck's 20 coefficient rounds
+    g = torch.Generator().manual_seed(20261017)
+    lf = limb.FQ
+    T = random_elems((1 << 20,), g, dev)
+    E = random_elems((1 << 20,), g, dev)
+    st = random_elems((9,), g, dev).T.reshape(9, 8, 1).contiguous()
+    rounds, outs = [], []
+    for lh in range(19, -1, -1):
+        h = 1 << lh
+        hv = (T[:, :h], T[:, h:2 * h], E[:, :h], E[:, h:2 * h])
+        outs += list(K.coeffs(lf, *hv, st))
+        rounds.append(device_ms(torch, lambda: K.coeffs(lf, *hv, st)))
+    out.update(coeff_round_ms=rounds, coeff_sum_ms=sum(rounds),
+               k6_digest=digest_of(outs))
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--repo", default=os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
+    ap.add_argument("--repo", default=HERE)
     ap.add_argument("--rounds", type=int, default=3)
     args = ap.parse_args()
     repo = os.path.abspath(args.repo)
@@ -73,7 +150,7 @@ def main() -> int:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    cudabuild.build(["padd", "msm_tree"])
+    cudabuild.build(["padd", "msm_tree", "sumcheck"])
     build_s = time.perf_counter() - t0
 
     dev = torch.device("cuda")
@@ -120,11 +197,12 @@ def main() -> int:
     torch.cuda.synchronize()
     host_launch_us = (time.perf_counter() - t1) / 2000 * 1e6
 
+    kernels = kernel_times(torch, ck, basis, chunk(), dev)
     print(json.dumps({"repo": repo, "card": smi, "cap": CAP,
                       "build_s": build_s, "chunk_ms": chunk_ms,
                       "enqueue_ms": enqueue_ms,
                       "tree_ms": tree_ms, "host_launch_us": host_launch_us,
-                      "digest": digest}), flush=True)
+                      "digest": digest, **kernels}), flush=True)
     return 0
 
 
