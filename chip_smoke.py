@@ -14,12 +14,17 @@ script exits non-zero and prints no result:
           (a thread a lane, a group of six threads a lane) at B = 1, 2,
           37, the crossover -1, 0, +1, 8192 and 2^16, and the halving
           reduce against the per-level loop at the MSM's two shapes (the
-          Fenwick levels with the acc add, the digits); exact.  The sweep
+          Fenwick levels with the acc add, the digits); also at the
+          shapes the mesh adds (`mesh_path_shapes`: a Vesta shard's
+          per-level adds, 32 .. 2^15 points on eight shards, the
+          cross-shard reduce of the window sums, the step's point sums);
+          exact.  The sweep
           of both add launches' device times over B = 2^0..2^16 that set
           the crossover (padd.THREAD_MIN_B), and the reduces against the
           per-level launches they replace
   tree    K2 (csrc/msm_tree.cu) against its plain version at cap = 4096
-          and 16384 on both curves and 65536 on Pallas, all 32 windows;
+          and 16384 on both curves and 65536 on Pallas, and at a mesh
+          shard's cap (8192 on Pallas on eight shards), all 32 windows;
           exact on every node, spot-checked on affine points against the
           python curve at 16384; the time of each level's launch
   msm     msm_device_v3 at n = 2^16 on Pallas and Vesta against the native
@@ -31,7 +36,8 @@ script exits non-zero and prints no result:
           sample plus the last state; both of its launches (a thread per
           state, a block per state) at t = 5 and 9 on both fields at
           B = 1, 2, 37 and the crossover -1, 0, +1 against the plain
-          version and a few states against the python host permutation;
+          version and a few states against the python host permutation,
+          and at t = 5 the mesh step's batch a shard on a sample;
           exact.  The sweep of both launches' times over B = 2^0..2^15
           that set the crossover (poseidon_kernel.THREAD_MIN_B)
   sumcheck  a full device nlookup_prove on 2^14 and 2^16 tables against
@@ -39,7 +45,8 @@ script exits non-zero and prints no result:
           (csrc/sumcheck.cu: coefficients, fold, eq step) against the
           plain versions at half = 2^19, and the coefficient launch at
           every half 2^19..1 with and without a sponge state, one launch
-          a round, each round's device time
+          a round, each round's device time; the fold and the eq step at
+          every half too
   merkle  build_tree_device of the 1 MB DNA document (2^19 leaves, one K5
           launch per level), timed; a 64 Ki-entry document's root equal
           to the host MerkleCommitment
@@ -63,6 +70,19 @@ script exits non-zero and prints no result:
   msm_aux the binary msm.msm_device (its point adds on K1) at n = 256 and
           msm_pallas (K1) at n = 2048 against the native host MSM;
           exact, timed, K1 must have launched (both are off-path)
+  mesh    the multi-device prover (reef_tpu_torch/parallel/mesh.py) on a
+          mesh of every CUDA device where torch sees more than one, else
+          of eight shards on the one card: the sharded MSM at n = 2^16 on
+          Pallas and 2^14 on Vesta against the native host MSM and
+          msm_device_v3; the sharded nlookup sumcheck on a 2^20-entry
+          table (split by its low bits) against the host route's
+          transcript; sharded_prover_step at B = half = 2^19 against
+          device_step and its point sum against the python curve; then
+          dryrun_multichip on the mesh (a real SAFA's sumcheck, an MSM, and
+          a small document proved and verified with both sharded routes
+          forced).  Exact; each part timed beside its single-device
+          counterpart on the same card (with shards that share a card,
+          what splitting costs, not scaling)
   e2e     `cli dna --e2e` in-process with REEF_DEVICE_MSM=1 and
           REEF_DEVICE_SUMCHECK=auto on the 1 MB document of the
           reference's dna.sh workload (seed 42); must prove and verify,
@@ -76,11 +96,16 @@ script exits non-zero and prints no result:
           run is timed again in the warm process, with both routes on the
           host (REEF_DEVICE_MSM=0, REEF_DEVICE_SUMCHECK=0) and on the
           card, and once more on the card under torch.profiler: each
-          kernel's device time over one warm e2e, by name
+          kernel's device time over one warm e2e, by name.  Last, the same
+          run on the mesh phase's devices as the process mesh: it must
+          prove and verify, sharded_msm and the sharded sumcheck rounds
+          must each have run, and K1, K2, K5 and K6 must have launched in
+          it (its counts, set to 0 just before it, are `mesh_launches`)
 
 Then the bound of each kernel row at the card's integer rate as one JSON
 line, the card's name and power limit, the kernel table as one JSON line
-(its `launches` are the e2e's), and as the last line {"ok": true,
+(its `launches` are the single-device e2e's), and as the last line
+{"ok": true,
 "device": {...}}.  Kernel times are
 CUDA events around a run of launches; `device_ms` queues the launches
 behind a sleep on the card first, so that a short kernel's time is not
@@ -154,6 +179,11 @@ PIPPENGER_N = {"pallas": 1 << 16, "vesta": 1 << 14}
 MXU_B = (1 << 14, 1 << 19)
 MXU_T9_B = 4096
 AUX_BINARY_N, AUX_PALLAS_N = 256, 2048
+# the mesh phase: the e2e's commit sizes, the document's sumcheck table,
+# the flagship step's points a shard
+MESH_MSM_N = {"pallas": 1 << 16, "vesta": 1 << 14}
+MESH_SUMCHECK_N = 1 << 20
+MESH_STEP_PTS = 2
 # the e2e's kernels: K1, K2, K5 and K6 (K3 and K4 run off its path)
 E2E_KERNELS = ("padd", "padd_reduce", "msm_tree", "poseidon",
                "poseidon_spread",
@@ -313,17 +343,19 @@ def padd_pairs(torch, ck, dev, B: int, rnd):
     return P, Q
 
 
-def phase_padd(torch, dev, curves, rnd) -> dict:
+def phase_padd(torch, dev, curves, rnd, mesh_shapes) -> dict:
     """K1's three launches against their plain versions on both curves,
-    the sweep that sets the crossover, and the reduces against the
-    per-level launches they replace; returns the three kernel-table
-    rows."""
+    also at the mesh path's shapes (`mesh_path_shapes`), the sweep that
+    sets the crossover, and the reduces against the per-level launches
+    they replace; returns the three kernel-table rows."""
     from reef_tpu_torch.ec import padd as PD
     t0 = time.perf_counter()
     B = PADD_LANES
     cross = PD.THREAD_MIN_B
     sizes = sorted(b for b in set(PADD_CHECK_B) | {cross - 1, cross,
-                                                   cross + 1, B} if b <= B)
+                                                   cross + 1, B}
+                   | set(mesh_shapes["padd_b"]) if b <= B)
+    reduce_shapes = {**REDUCE_SHAPES, **mesh_shapes["reduce"]}
     errs = {"padd": [], "padd_spread": [], "padd_reduce": []}
     res, red, pallas = {}, {}, None
     for ck in curves:
@@ -347,8 +379,9 @@ def phase_padd(torch, dev, curves, rnd) -> dict:
                                           want[..., :Bs]))
                 require(errs[name][-1] == 0, f"padd {cv.name} B={Bs} path "
                         f"{path}: kernel != plain (max {errs[name][-1]})")
-        # the reduces at the MSM's shapes, over sums with the special lanes
-        for shape, (A, L, C, has_acc) in REDUCE_SHAPES.items():
+        # the reduces at the MSM's and the mesh's shapes, over sums with
+        # the special lanes
+        for shape, (A, L, C, has_acc) in reduce_shapes.items():
             idx = torch.arange(A * L * C, device=dev) * 7 % B
             X = want[:, :, idx].reshape(3, 8, A, L, C).contiguous()
             acc = (want[:, :, idx[:A * C].flip(0)].reshape(3, 8, A, C)
@@ -397,7 +430,7 @@ def phase_padd(torch, dev, curves, rnd) -> dict:
          thread_min_b=PD.THREAD_MIN_B, reduce=red,
          reduce_plan={shape: PD.reduce_plan(A * C, L, has_acc, sms)
                       for shape, (A, L, C, has_acc)
-                      in REDUCE_SHAPES.items()},
+                      in reduce_shapes.items()},
          sweep_ms_thread_spread=sweep, **res)
     mads = MULS_PER_PADD * MADS_PER_MUL
     common = {"route": "cuda", "source": "reef_tpu_torch/csrc/padd.cu",
@@ -421,7 +454,7 @@ def phase_padd(torch, dev, curves, rnd) -> dict:
                         "shape": f"(3, 8, {Bs}) int32, Pallas, the SPREAD "
                                  f"launch (six threads an add)"}}
     shapes = {}
-    for shape, (A, L, C, has_acc) in REDUCE_SHAPES.items():
+    for shape, (A, L, C, has_acc) in reduce_shapes.items():
         adds = A * C * (L - 1 + has_acc)
         nb = (A * L * C + A * C * (1 + has_acc)) * 96
         b_ms, b_by = bound_ms(nb, adds * mads)
@@ -442,9 +475,10 @@ def phase_padd(torch, dev, curves, rnd) -> dict:
     return rows
 
 
-def phase_tree(torch, dev, curves) -> dict:
-    """K2 against its plain version at every cap of TREE_CHECK on its
-    curves, all 32 windows, exact on every node; at TREE_CAP spot-checked
+def phase_tree(torch, dev, curves, mesh_shapes) -> dict:
+    """K2 against its plain version at every cap of TREE_CHECK and of the
+    mesh path (`mesh_path_shapes`) on its curves, all 32 windows, exact
+    on every node; at TREE_CAP spot-checked
     on affine points against the python curve, and timed: a call and
     each level's launch.  Returns its kernel-table row."""
     from reef_tpu_torch.backend.commitment import PedersenGens
@@ -453,10 +487,12 @@ def phase_tree(torch, dev, curves) -> dict:
     W = msm_v3.N_WINDOWS
     g = torch.Generator(device="cpu").manual_seed(7)
     res, errs = {}, []
+    checked = {name: sorted(set(caps) | set(mesh_shapes["tree_caps"][name]))
+               for name, caps in TREE_CHECK.items()}
     for ck in curves:
         cv = ck.curve
         gens = PedersenGens(cv, b"chip_smoke/msm", MSM_N).G
-        for cap in TREE_CHECK[cv.name]:
+        for cap in checked[cv.name]:
             base = points_of(ck, gens[:cap], dev, torch)    # (3, 8, cap)
             order = torch.stack([torch.randperm(cap, generator=g)
                                  for _ in range(W)]).to(dev)  # (W, cap)
@@ -489,7 +525,7 @@ def phase_tree(torch, dev, curves) -> dict:
             res[cv.name] = {"ms": ms, "plain_ms": plain_ms,
                             "level_ms": tree_split(torch, ck, placed,
                                                    reps=10)}
-    emit("tree", t0, cap=TREE_CAP, checked_caps=TREE_CHECK, windows=W, **res)
+    emit("tree", t0, cap=TREE_CAP, checked_caps=checked, windows=W, **res)
     cap = TREE_CAP
     n_aff, n_full = W * cap // 2, W * (cap // 2 - 1)
     tree_mads = ((n_aff * MULS_PER_AFFINE_ADD + n_full * MULS_PER_PADD)
@@ -506,9 +542,10 @@ def phase_tree(torch, dev, curves) -> dict:
         "shape": f"(2, 8, {W}, {cap}) -> (3, 8, {W}, {cap}) int32, Pallas"}
 
 
-def phase_poseidon(torch, dev) -> dict:
-    """K5's two launches against the plain version; returns its
-    kernel-table row."""
+def phase_poseidon(torch, dev, mesh_shapes) -> dict:
+    """K5's two launches against the plain version, and at t = 5 the
+    mesh step's batch a shard (`mesh_path_shapes`) on a sample; returns
+    its kernel-table row."""
     from reef_tpu_torch.models.prover_step import random_elems
     from reef_tpu_torch.ops import limb, poseidon_device
     from reef_tpu_torch.ops import poseidon_kernel as PK
@@ -538,9 +575,16 @@ def phase_poseidon(torch, dev) -> dict:
     host_check(lf, X, got, (0, B - 1))
     ms5 = cuda_ms(torch, lambda: permute(lf, X), reps=5)
     plain5 = cuda_ms(torch, lambda: plain(lf, Xs), reps=1)
+    errs = [err]
+    for Bs in mesh_shapes["poseidon_b"]:
+        Xb = X[:, :, :Bs].contiguous()
+        ib = idx[idx < Bs]
+        errs.append(max_err(permute(lf, Xb)[:, :, ib],
+                            plain(lf, Xb[:, :, ib].contiguous())))
+        require(errs[-1] == 0, f"poseidon t=5 B={Bs}: kernel != plain "
+                f"(max {errs[-1]})")
     # both launches at every B of POSEIDON_CHECK_B and around the
     # crossover, against one plain run over all those states
-    errs = [err]
     for f in (limb.FQ, limb.FP):
         for t in (5, 9):
             cross = PK.THREAD_MIN_B
@@ -576,6 +620,7 @@ def phase_poseidon(torch, dev) -> dict:
          t9_b1_thread_ms=thread9, t9_b1_bound_ms=bms9,
          t9_b1_plain_ms=plain9, t5_states_per_s=B / ms5 * 1e3,
          thread_min_b=PK.THREAD_MIN_B,
+         checked_t5_b=[B, *mesh_shapes["poseidon_b"]],
          sweep_ms_thread_spread=sweep)
     return {
         "name": "poseidon", "route": "cuda",
@@ -669,11 +714,20 @@ def phase_sumcheck(torch, dev, rnd) -> dict:
             "int_bound_ms": res[name]["int_bound_ms"],
             "shape": f"(8, {2 * half}) int32 tables, half = {half}"}
     # the coefficient launch at every round of a 2^(LOG+1)-entry sumcheck,
-    # with and without a sponge state: exact, one launch a round
+    # with and without a sponge state: exact, one launch a round; the fold
+    # and the eq step at every width too (the shards' and the lead's)
     rounds = []
     for lh in range(SUMCHECK_KERNEL_LOG, -1, -1):
         h = 1 << lh
         hv = (T[:, :h], T[:, h:2 * h], E[:, :h], E[:, h:2 * h])
+        tm = T[:, :h].contiguous()
+        for name, got, want in (
+                ("fold", K.fold(lf, *hv, r), K.fold_plain(lf, *hv, r)),
+                ("eq_step", (K.eq_step(lf, tm, r),),
+                 (K.eq_step_plain(lf, tm, r),))):
+            err = max(max_err(a, b) for a, b in zip(got, want))
+            require(err == 0, f"{name} half={h}: kernel != plain "
+                    f"(max {err})")
         for state in (st, None):
             before = cudabuild.launch_counts()["sumcheck_coeffs"]
             got = K.coeffs(lf, *hv, state)
@@ -749,6 +803,153 @@ def phase_step(torch, dev) -> None:
     ms = cuda_ms(torch, lambda: PS.device_step(states, t_tab, eq_tab, r),
                  reps=5)
     emit("step", t0, states=STEP_B, half=STEP_HALF, ms=ms, max_abs_err=err)
+
+
+def mesh_devices(torch) -> list:
+    """Every CUDA device where torch sees more than one, else eight shards
+    on the one card (`parallel.dryrun.default_devices`)."""
+    from reef_tpu_torch.parallel.dryrun import default_devices
+    return default_devices()
+
+
+def mesh_path_shapes(m: int) -> dict:
+    """The launch shapes that a mesh of m shards gives K1, K2 and K5 in
+    the mesh e2e and the mesh phase beyond the single-device e2e's: each
+    curve's MESH_MSM_N commit as one chunk of n_local points a shard (K2's
+    tree at a cap of msm_v3.TREE_MIN_CAP and more, else K1's per-level
+    adds of W n_local / 2 .. W points) and its Fenwick reduce, the
+    cross-shard reduce of the window sums (1, L, W), the step's point
+    sums (1, L, 1) and the step's K5 batch a shard (t = 5, Fq)."""
+    from reef_tpu_torch.ec import msm_v3
+    from reef_tpu_torch.parallel.mesh import _n_local, _pow2_at_least
+    W, L = msm_v3.N_WINDOWS, _pow2_at_least(m)
+    caps, adds, reduce = {}, set(), {}
+
+    def add_reduce(name, shape):
+        if shape not in [*REDUCE_SHAPES.values(), *reduce.values()]:
+            reduce[name] = shape
+
+    for name, n in MESH_MSM_N.items():
+        cap = min(msm_v3.default_cap(), _n_local(n, m))
+        log = cap.bit_length() - 1
+        caps[name] = [cap] if cap >= msm_v3.TREE_MIN_CAP else []
+        if cap < msm_v3.TREE_MIN_CAP:
+            adds |= {W * (cap >> b) for b in range(1, log + 1)}
+        add_reduce(f"mesh_fenwick_{cap}",
+                   (W, 1 << log.bit_length(), msm_v3.DP, True))
+    add_reduce("mesh_windows", (1, L, W, False))
+    add_reduce("mesh_step_shard",
+               (1, _pow2_at_least(MESH_STEP_PTS), 1, False))
+    add_reduce("mesh_step", (1, L, 1, False))
+    return {"tree_caps": caps, "padd_b": sorted(adds), "reduce": reduce,
+            "poseidon_b": [STEP_B // m]}
+
+
+def phase_mesh(torch, dev, curves, rnd) -> list:
+    """The multi-device prover (parallel/mesh.py) at the e2e's sizes on
+    `mesh_devices`: the sharded MSM against the native host MSM, the
+    sharded sumcheck against the host route's transcript, the sharded
+    step against device_step and the python curve, then
+    dryrun_multichip; exact.  Each timed beside its single-device
+    counterpart on the same card.  Returns the mesh's devices."""
+    from reef_tpu_torch.backend import sumcheck as SC
+    from reef_tpu_torch.backend.commitment import PedersenGens
+    from reef_tpu_torch.ec import msm_v3, native_msm
+    from reef_tpu_torch.ec.pasta import VESTA
+    from reef_tpu_torch.models import prover_step as PS
+    from reef_tpu_torch.ops import field as F
+    from reef_tpu_torch.ops import limb
+    from reef_tpu_torch.ops.sumcheck_device import DeviceTableCache
+    from reef_tpu_torch.parallel import mesh as PM
+    from reef_tpu_torch.parallel.dryrun import dryrun_multichip
+    t0 = time.perf_counter()
+    mesh = PM.make_mesh(devices=mesh_devices(torch))
+    m = mesh.size
+    res = {}
+    for ck in curves:
+        cv = ck.curve
+        n = MESH_MSM_N[cv.name]
+        gens = PedersenGens(cv, b"chip_smoke/mesh", n)
+        scalars = [rnd.randrange(cv.order) for _ in range(n)]
+        sb = PM.ShardedBasis(ck, gens.G, mesh)
+        basis = msm_v3.DeviceBasisV3(ck, gens.G, device=dev)
+        t1 = time.perf_counter()
+        got = PM.sharded_msm(mesh, ck, scalars, sb)    # ends in a copy
+        sharded_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        single = msm_v3.msm_device_v3(ck, scalars, basis)
+        single_s = time.perf_counter() - t1
+        want = native_msm.msm_packed(cv, scalars, gens.packed_G(),
+                                     handle=gens.native_basis())
+        require(got == want == single, f"mesh msm {cv.name}: sharded, "
+                "single-device and native host MSMs differ")
+        scbs = PM.upload_sharded_scalars(sb, scalars)
+        scb = msm_v3.upload_scalars(basis, [scalars])[0]
+        res[f"msm_{cv.name}"] = {
+            "n": n, "n_local": sb.n_local,
+            "sharded_windows_ms": cuda_ms(
+                torch, lambda: PM.sharded_windows(ck, sb, scbs), reps=3),
+            "single_windows_ms": cuda_ms(
+                torch, lambda: msm_v3.msm_windows(ck, basis, scb), reps=3),
+            "sharded_call_s": sharded_s, "single_call_s": single_s}
+
+    # the document's sumcheck: split by the low bits, against the host
+    f, lf = F.FQ, limb.FQ
+    n = MESH_SUMCHECK_N
+    table = [rnd.randrange(4) for _ in range(n)]
+    qs = [rnd.randrange(n) for _ in range(64)]
+    vs = [table[q] for q in qs]
+    ell = n.bit_length() - 1
+    prev_q = [rnd.randrange(f.p) for _ in range(ell)]
+    prev_v = SC.verifier_mle_eval(f, table, prev_q)
+    args = (f, table, qs, vs, prev_q, prev_v, "nldoc", 12345)
+    t1 = time.perf_counter()
+    host = SC.nlookup_prove(*args)
+    host_s = time.perf_counter() - t1
+    caches = {"sharded": PM.sharded_table_cache(lf, table, mesh),
+              "single": DeviceTableCache(lf, table, device=dev)}
+    secs = {}
+    for name, cache in caches.items():
+        secs[name] = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            got = SC.nlookup_prove(*args, device_cache=cache)
+            secs[name].append(time.perf_counter() - t1)
+            require(got == host, f"mesh sumcheck ({name}): transcript != "
+                    "host route")
+    eq = caches["single"].t_shards[0]
+    res["sumcheck"] = {
+        "n": n, "rounds_on_shards": ell - (m.bit_length() - 1),
+        "host_route_s": host_s, "sharded_route_s": secs["sharded"],
+        "single_route_s": secs["single"],
+        "eq_split_ms": cuda_ms(torch, lambda: caches["sharded"].split(eq),
+                               reps=3)}
+
+    # the flagship step, split over the mesh, against device_step
+    gen = torch.Generator().manual_seed(9)
+    args = PM.sharded_example_args(mesh, gen, STEP_B // m, STEP_HALF // m,
+                                   MESH_STEP_PTS)
+    step = PM.sharded_prover_step(mesh)
+    out = step(*args)
+    want = PS.device_step(*[a.to(dev) for a in args[:4]])
+    for i, (a, b) in enumerate(zip(out[:6], want)):
+        require(torch.equal(a, b), f"mesh step: output {i} != device_step")
+    pt_sum = None
+    for i in range(args[4].shape[2]):
+        pt_sum = VESTA.add(pt_sum, VESTA.mul(i + 2, VESTA.gen))
+    require(curves[1].to_affine(out[6].permute(2, 0, 1).cpu().numpy())
+            == [pt_sum], "mesh step: point sum != python curve")
+    res["step"] = {
+        "states": STEP_B, "half": STEP_HALF, "points": args[4].shape[2],
+        "sharded_ms": cuda_ms(torch, lambda: step(*args), reps=3),
+        "single_ms": cuda_ms(torch, lambda: PS.device_step(*args[:4]),
+                             reps=3)}
+    res["dryrun"] = dryrun_multichip(mesh.devices, log=lambda msg: None)
+    emit("mesh", t0, devices=[str(d) for d in mesh.devices],
+         note=("shards share one card: the times measure what splitting "
+               "costs, not scaling" if len(set(mesh.devices)) == 1
+               else "one shard a card"), **res)
+    return [str(d) for d in mesh.devices]
 
 
 def mxu_range_cols(torch, lf, B: int, g, dev):
@@ -1038,6 +1239,74 @@ def e2e_profile(torch, prof):
             per_e2e, busy)
 
 
+def build_all() -> None:
+    """nvcc builds of the kernels (one process per source, all together)
+    and g++ builds of the shared host libraries, then loads them."""
+    from reef_tpu_torch.utils import cudabuild, nativebuild
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as ex:
+        native = [ex.submit(nativebuild.build_native_lib,
+                            nativebuild.native_src(src), stem, extra)
+                  for src, stem, extra in (
+                      ("msm.cpp", "libpastamsm", None),
+                      ("fieldvec.cpp", "libfieldvec", None),
+                      ("solver.cpp", "libsafasolver", ["-pthread"]))]
+        built = cudabuild.build()
+        for fut in native:
+            fut.result()
+    ptxas = {name: [ln.strip().replace("ptxas info    : ", "")
+                    for ln in b["log"].splitlines()
+                    if "registers" in ln or "spill" in ln
+                    or "Function properties for" in ln]
+             for name, b in built.items()}
+    emit("build", t0, nvcc_seconds={k: round(v["seconds"], 3)
+                                    for k, v in built.items()},
+         ptxas=ptxas)
+    for name in cudabuild.LIBS:
+        cudabuild.library(name)
+
+
+def dna_argv(work: str, size: int) -> list:
+    """`cli dna --e2e` on the dna.sh document of `size` bytes, written
+    into `work`."""
+    doc = os.path.join(work, "dna.txt")
+    with open(doc, "w") as fh:
+        fh.write(dna_text(size))
+    return ["dna", "--e2e", "-d", doc, "-r",
+            f"^.{{{size - len(DNA_MOTIF)}}}{DNA_MOTIF}.*", "-b", "0"]
+
+
+def run_e2e(torch, work: str, argv: list, msm: str, sumcheck: str) -> float:
+    """One in-process commit + prove + verify in `work` with
+    REEF_DEVICE_MSM=msm and REEF_DEVICE_SUMCHECK=sumcheck, which must
+    verify; returns its wall seconds."""
+    from reef_tpu_torch import cli
+    routes = ("REEF_DEVICE_MSM", "REEF_DEVICE_SUMCHECK")
+    prev_cwd = os.getcwd()
+    prev_env = {k: os.environ.get(k) for k in routes}
+    out = io.StringIO()
+    try:
+        os.environ.update(zip(routes, (msm, sumcheck)))
+        os.chdir(work)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    finally:
+        os.chdir(prev_cwd)
+        for k, v in prev_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    require("Verification PASSED" in out.getvalue(),
+            f"e2e ({msm}, {sumcheck}): proof did not verify:\n"
+            + out.getvalue())
+    return wall
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -1068,35 +1337,18 @@ def main() -> int:
          count=torch.cuda.device_count())
 
     # ---- build -----------------------------------------------------------
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as ex:
-        native = [ex.submit(nativebuild.build_native_lib,
-                            nativebuild.native_src(src), stem, extra)
-                  for src, stem, extra in (
-                      ("msm.cpp", "libpastamsm", None),
-                      ("fieldvec.cpp", "libfieldvec", None),
-                      ("solver.cpp", "libsafasolver", ["-pthread"]))]
-        built = cudabuild.build()
-        for fut in native:
-            fut.result()
-    ptxas = {name: [ln.strip().replace("ptxas info    : ", "")
-                    for ln in b["log"].splitlines()
-                    if "registers" in ln or "spill" in ln
-                    or "Function properties for" in ln]
-             for name, b in built.items()}
-    emit("build", t0, nvcc_seconds={k: round(v["seconds"], 3)
-                                    for k, v in built.items()},
-         ptxas=ptxas)
-    for name in cudabuild.LIBS:
-        cudabuild.library(name)
+    build_all()
 
     curves = [pallas_kernels(), vesta_kernels()]
+    # the shapes the mesh phase and the mesh e2e add, held in the phases of
+    # their kernels
+    mesh_shapes = mesh_path_shapes(len(mesh_devices(torch)))
 
     # ---- padd (K1) -------------------------------------------------------
-    kernels.update(phase_padd(torch, dev, curves, rnd))
+    kernels.update(phase_padd(torch, dev, curves, rnd, mesh_shapes))
 
     # ---- tree (K2) -------------------------------------------------------
-    kernels["msm_tree"] = phase_tree(torch, dev, curves)
+    kernels["msm_tree"] = phase_tree(torch, dev, curves, mesh_shapes)
 
     # ---- msm -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1148,7 +1400,7 @@ def main() -> int:
          plain_chunk_ms_no_yardstick=plain_chunk_ms, **res)
 
     # ---- poseidon (K5), sumcheck (K6), merkle, step -----------------------
-    kernels["poseidon"] = phase_poseidon(torch, dev)
+    kernels["poseidon"] = phase_poseidon(torch, dev, mesh_shapes)
     kernels.update(phase_sumcheck(torch, dev, rnd))
     phase_merkle(torch, dev)
     phase_step(torch, dev)
@@ -1159,11 +1411,14 @@ def main() -> int:
     phase_mxu(torch, dev)
     phase_msm_aux(torch, dev, rnd)
 
+    # ---- mesh: the multi-device prover ------------------------------------
+    mesh_devs = phase_mesh(torch, dev, curves, rnd)
+
     # ---- e2e: the main path ----------------------------------------------
     t0 = time.perf_counter()
-    from reef_tpu_torch import cli
     from reef_tpu_torch.backend import witness
     from reef_tpu_torch.ops import sumcheck_device
+    from reef_tpu_torch.parallel import mesh as PM
     msms, sumchecks, nlookups = [], [], []
     orig = msm_v3.msm_device_v3
     orig_sc = sumcheck_device.device_sumcheck_rounds
@@ -1191,40 +1446,16 @@ def main() -> int:
 
     work = tempfile.mkdtemp(dir=nativebuild.build_dir())
     size = DNA_BYTES
-    doc = os.path.join(work, "dna.txt")
-    with open(doc, "w") as fh:
-        fh.write(dna_text(size))
-    argv = ["dna", "--e2e", "-d", doc, "-r",
-            f"^.{{{size - len(DNA_MOTIF)}}}{DNA_MOTIF}.*", "-b", "0"]
-    routes = ("REEF_DEVICE_MSM", "REEF_DEVICE_SUMCHECK")
+    e2e = partial(run_e2e, torch, work, dna_argv(work, size))
 
-    def e2e(msm: str, sumcheck: str):
-        """One commit + prove + verify with REEF_DEVICE_MSM=msm and
-        REEF_DEVICE_SUMCHECK=sumcheck, which must verify; returns its wall
-        seconds."""
-        prev_cwd = os.getcwd()
-        prev_env = {k: os.environ.get(k) for k in routes}
-        out = io.StringIO()
-        try:
-            os.environ.update(zip(routes, (msm, sumcheck)))
-            os.chdir(work)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            with contextlib.redirect_stdout(out):
-                cli.main(argv)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t1
-        finally:
-            os.chdir(prev_cwd)
-            for k, v in prev_env.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
-        require("Verification PASSED" in out.getvalue(),
-                f"e2e ({msm}, {sumcheck}): proof did not verify:\n"
-                + out.getvalue())
-        return wall
+    mesh_calls = {"sharded_msm": 0, "sharded_rounds": 0}
+    orig_mesh_msm = PM.sharded_msm
+    orig_mesh_rounds = sumcheck_device.sharded_rounds
+
+    def counted(name, fn, *a):
+        # sharded_rounds over one shard is sumcheck_rounds
+        mesh_calls[name] += name == "sharded_msm" or len(a[1]) > 1
+        return fn(*a)
 
     nl_runs = {}
     try:
@@ -1247,11 +1478,28 @@ def main() -> int:
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             prof_wall = e2e("1", "auto")
+        # and on the mesh of the mesh phase: every commit MSM through
+        # sharded_msm, the document's sumcheck through sharded_rounds
+        PM.select(mesh_devs)
+        PM.sharded_msm = partial(counted, "sharded_msm", orig_mesh_msm)
+        sumcheck_device.sharded_rounds = partial(counted, "sharded_rounds",
+                                                 orig_mesh_rounds)
+        cudabuild.reset_counts()
+        mesh_wall = e2e("1", "auto")
+        mesh_launches = cudabuild.launch_counts()
     finally:
         msm_v3.msm_device_v3 = orig
         sumcheck_device.device_sumcheck_rounds = orig_sc
         witness.nlookup_prove = orig_nl
+        PM.sharded_msm = orig_mesh_msm
+        sumcheck_device.sharded_rounds = orig_mesh_rounds
+        PM.select(None)
         shutil.rmtree(work, ignore_errors=True)
+    require(mesh_calls["sharded_msm"] > 0
+            and mesh_calls["sharded_rounds"] > 0
+            and all(mesh_launches[k] > 0 for k in E2E_KERNELS),
+            f"e2e on the mesh: a sharded route or a kernel never ran: "
+            f"{mesh_calls}, {mesh_launches}")
     require(all(launches[k] > 0 for k in E2E_KERNELS),
             f"e2e: a kernel of the main path never launched: {launches}")
     # K1 only in its reduces, one a chunk and one an MSM; one coefficient
@@ -1293,7 +1541,9 @@ def main() -> int:
          device_sumchecks=[s[0] for s in sumchecks],
          device_sumcheck_s=sum(s[1] for s in sumchecks),
          nlookup_prove_s=nl_runs, launches=launches,
-         warm_wall_s=warm_wall, warm_host_routes_wall_s=host_wall)
+         warm_wall_s=warm_wall, warm_host_routes_wall_s=host_wall,
+         mesh_devices=mesh_devs, mesh_wall_s=mesh_wall,
+         mesh_calls=mesh_calls, mesh_launches=mesh_launches)
 
     # every row's launches are the e2e's (K3 and K4, and K1's SPREAD add,
     # run off its path: their phases' lines give their launches there)

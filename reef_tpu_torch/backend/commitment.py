@@ -257,9 +257,10 @@ def shared_blinding_gen(cv: Curve = PALLAS) -> Point:
 
 def _device_msm_mode() -> str:
     """REEF_DEVICE_MSM gate: "0" = host only, "1" = force the device
-    route (on the selected engine device, the CPU included: there the
-    kernels' plain versions run), "auto" = engage on a CUDA engine device
-    for commits of at least DEVICE_MSM_MIN_N values (utils.device)."""
+    route (on the process mesh's devices, the CPU included: there the
+    kernels' plain versions run), "auto" = engage where the process mesh
+    holds cards (utils.device `accel_device_count`) for commits of at
+    least DEVICE_MSM_MIN_N values."""
     import os
     return os.environ.get("REEF_DEVICE_MSM", "auto")
 
@@ -284,14 +285,23 @@ def _device_msm_on(n: Optional[int] = None) -> bool:
         return True
     if mode != "auto":
         return False
-    from ..utils.device import device_profile
-    if device_profile() == "cpu":
+    # the reference engages on `accel_device_count() > 1` or a local
+    # accelerator; every profile of the port but "cpu" is local
+    from ..utils.device import accel_device_count
+    if accel_device_count() == 0:
         return False
     return n is None or n >= DEVICE_MSM_MIN_N
 
 
 DEVICE_MSM_MIN_N = 256          # below this the host MSM always wins
 DEVICE_ROWS_MIN_N = 4096        # tree-kernel shape floor for row batches
+
+
+def _single_accel_device() -> bool:
+    """True when the process mesh has one device (the rows route runs on
+    one device; a mesh takes the sharded MSM instead)."""
+    from ..parallel.mesh import process_mesh
+    return process_mesh().size == 1
 
 
 def _pack_H(cv: Curve, H: Point) -> bytes:
@@ -308,6 +318,7 @@ class PedersenGens:
         self._G = None
         self.H = shared_blinding_gen(cv)
         self._device_basis = None
+        self._sharded_basis = None
 
     def native_basis(self):
         """Native basis handle: points loaded + IFMA-converted once per
@@ -339,8 +350,26 @@ class PedersenGens:
             self._device_basis = DeviceBasisV3(kernels_for(self.cv), self.G)
         return self._device_basis
 
+    def sharded_G(self, mesh=None):
+        """The basis split over `mesh` (default: the process mesh) for the
+        sharded MSM; cached, one upload per gens set and mesh."""
+        from ..parallel.mesh import ShardedBasis, process_mesh
+        if mesh is None:
+            mesh = process_mesh()
+        if self._sharded_basis is None or self._sharded_basis.mesh != mesh:
+            from ..ec.msm import kernels_for
+            self._sharded_basis = ShardedBasis(kernels_for(self.cv), self.G,
+                                               mesh)
+        return self._sharded_basis
+
     def _msm_device_route(self, values: List[int]) -> Point:
-        """Device MSM on the single engine device."""
+        """Device MSM: split over the process mesh when it has more than
+        one device, else on the single engine device."""
+        from ..parallel.mesh import process_mesh, sharded_msm
+        mesh = process_mesh()
+        if mesh.size > 1:
+            basis = self.sharded_G(mesh)
+            return sharded_msm(mesh, basis.ck, list(values), basis)
         basis = self.device_G()
         from ..ec.msm_v3 import msm_device_v3
         return msm_device_v3(basis.ck, list(values), basis)
@@ -366,11 +395,13 @@ class PedersenGens:
 
         Wide matrices (row length >= DEVICE_ROWS_MIN_N, the tree kernel's
         chunk floor) route to the device when the REEF_DEVICE_MSM gate
-        engages: every row through ec.msm_v3.msm_device_v3_rows, blinds
-        folded in via one native fixed-base call."""
+        engages and the process mesh has one device: every row through
+        ec.msm_v3.msm_device_v3_rows, blinds folded in via one native
+        fixed-base call."""
         n_rows = len(blinds)
         assert n_rows and len(flat) == n_rows * self.n
-        if self.n >= DEVICE_ROWS_MIN_N and _device_msm_on(n_rows * self.n):
+        if (self.n >= DEVICE_ROWS_MIN_N and _device_msm_on(n_rows * self.n)
+                and _single_accel_device()):
             from ..ec.msm_v3 import msm_device_v3_rows
             from ..ec.native_msm import msm_rows as native_rows
             rows = [flat[r * self.n:(r + 1) * self.n]

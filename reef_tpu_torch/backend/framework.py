@@ -260,11 +260,13 @@ class _VerifierMerkle:
 
 
 def _prewarm_device_msm(committers) -> None:
-    """Build the CUDA kernels and upload each device basis on the MAIN
-    thread before the fold worker starts, so the worker's first commit
-    does not stall on the nvcc build or a basis upload (a build error
-    also surfaces here, on the main thread).  No-op when the device MSM
-    gate is off."""
+    """Build the CUDA kernels and upload each device basis (split over the
+    process mesh when it has more than one device) on the MAIN thread
+    before the fold worker starts, so the worker's first commit does not
+    stall on the nvcc build or a basis upload (a build error also
+    surfaces here, on the main thread).  No-op when the device MSM gate
+    is off."""
+    from ..parallel.mesh import process_mesh
     from . import commitment as CM
     from .ivc import secondary_parts
     try:
@@ -281,8 +283,13 @@ def _prewarm_device_msm(committers) -> None:
                 or not CM._device_msm_on(n):
             continue
         seen.add(key)
-        basis = gens.device_G()
-        if basis.device.type == "cuda":
+        mesh = process_mesh()
+        if mesh.size > 1:
+            gens.sharded_G(mesh)
+            dev = mesh.lead
+        else:
+            dev = gens.device_G().device
+        if dev.type == "cuda":
             from ..utils import cudabuild
             for name in cudabuild.LIBS:
                 cudabuild.library(name)

@@ -284,9 +284,11 @@ class WitnessGenerator:
         host, =1 forces the device route for every table (on the engine
         device, the CPU included: there the kernels' plain versions run).
 
-        A failed kernel build or launch raises: the route never falls back
-        to the host behind the caller's back.  One device only (the mesh
-        route of the JAX package is not ported)."""
+        With more than one device in the process mesh (parallel.mesh) the
+        table splits over it (`mesh.table_cache`: a power of two of
+        devices, at least 2 entries each), else it stays whole on the
+        lead device.  A failed kernel build or launch raises: the route
+        never falls back to the host behind the caller's back."""
         import os
         mode = os.environ.get("REEF_DEVICE_SUMCHECK", "auto")
         if mode == "0":
@@ -305,7 +307,10 @@ class WitnessGenerator:
                            and len(table) >= DEVICE_SUMCHECK_MIN_N):
             from ..ops.limb import FQ as LFQ
             from ..ops.sumcheck_device import DeviceTableCache
-            cache = DeviceTableCache(LFQ, table)
+            from ..parallel.mesh import process_mesh, table_cache
+            mesh = process_mesh()
+            cache = (table_cache(LFQ, table, mesh) if mesh.size > 1
+                     else DeviceTableCache(LFQ, table))
         self._dev_caches[key] = cache
         return cache
 

@@ -126,11 +126,9 @@ def tree_launch(ck: CurveKernels, placed: torch.Tensor, out: torch.Tensor,
     if list(levels) != list(range(lo, hi + 1)) or lo < 1 or cap >> hi < 1:
         raise ValueError(f"K2: levels {levels} are not a run of 1..log2 "
                          f"{cap}")
-    lib = cudabuild.library("msm_tree")
-    stream = torch.cuda.current_stream(placed.device).cuda_stream
-    err = lib.reef_tree_levels(placed.data_ptr(), out.data_ptr(), W, cap,
-                               lo, hi, ck.lf.field_id, stream)
-    cudabuild.check(err, "reef_tree_levels")
+    cudabuild.launch("msm_tree", "reef_tree_levels", placed.device,
+                     placed.data_ptr(), out.data_ptr(), W, cap, lo, hi,
+                     ck.lf.field_id)
     for _ in levels:
         cudabuild.count("msm_tree")
 
@@ -139,10 +137,8 @@ def tree_levels(ck: CurveKernels, placed: torch.Tensor) -> torch.Tensor:
     """All tree levels of every window; K2 on a CUDA tensor, one launch a
     level of `tree_plan(cap)`, the plain version on a CPU tensor."""
     _check_placed(placed)
-    if placed.device.type == "cpu":
+    if not cudabuild.on_card("tree_levels", placed):
         return tree_levels_plain(ck, placed)
-    if placed.device.type != "cuda":
-        raise ValueError(f"tree_levels: unsupported device {placed.device}")
     _, _, W, cap = placed.shape
     out = torch.empty((3, limb.N32, W, cap), dtype=torch.int32,
                       device=placed.device)

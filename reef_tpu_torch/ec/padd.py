@@ -67,15 +67,6 @@ def route(B: int) -> int:
     return SPREAD if B < THREAD_MIN_B else THREAD
 
 
-def _device(name: str, t: torch.Tensor) -> bool:
-    """True on a CUDA tensor, False on a CPU tensor, else raise."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {t.device}")
-    return True
-
-
 def launch(ck: CurveKernels, P: torch.Tensor, Q: torch.Tensor,
            path: int) -> torch.Tensor:
     """K1's add by the launch `path` (THREAD or SPREAD) on checked
@@ -85,11 +76,9 @@ def launch(ck: CurveKernels, P: torch.Tensor, Q: torch.Tensor,
     out = torch.empty_like(P)
     B = P.shape[2]
     if B:
-        lib = cudabuild.library("padd")
-        stream = torch.cuda.current_stream(P.device).cuda_stream
-        err = lib.reef_padd(P.data_ptr(), Q.data_ptr(), out.data_ptr(), B,
-                            ck.lf.field_id, path, stream)
-        cudabuild.check(err, "reef_padd")
+        cudabuild.launch("padd", "reef_padd", P.device, P.data_ptr(),
+                         Q.data_ptr(), out.data_ptr(), B, ck.lf.field_id,
+                         path)
         cudabuild.count("padd")
         if path == SPREAD:
             cudabuild.count("padd_spread")
@@ -108,7 +97,7 @@ def padd_soa(ck: CurveKernels, P: torch.Tensor, Q: torch.Tensor,
         path = route(P.shape[2])
     if path not in (THREAD, SPREAD):
         raise ValueError(f"padd_soa: no launch {path}")
-    if not _device("padd_soa", P):
+    if not cudabuild.on_card("padd_soa", P):
         return padd_soa_plain(ck, P, Q)
     return launch(ck, P, Q, path)
 
@@ -193,7 +182,7 @@ def padd_reduce(ck: CurveKernels, X: torch.Tensor,
     if X.stride(0) != limb.N32 * X.stride(1):
         raise ValueError(f"padd_reduce: strides {X.stride()} do not make "
                          f"uniform coordinate rows")
-    if not _device("padd_reduce", X):
+    if not cudabuild.on_card("padd_reduce", X):
         return padd_reduce_plain(ck, X, acc)
     _, _, A, _, C = X.shape
     n_out = A * C
@@ -203,13 +192,11 @@ def padd_reduce(ck: CurveKernels, X: torch.Tensor,
         sms = torch.cuda.get_device_properties(X.device) \
             .multi_processor_count
         gpb, threads, mask = reduce_plan(n_out, L, acc is not None, sms)
-        lib = cudabuild.library("padd")
-        stream = torch.cuda.current_stream(X.device).cuda_stream
-        err = lib.reef_padd_reduce(
-            X.data_ptr(), X.stride(1), n_out, C, X.stride(2), X.stride(4),
-            X.stride(3), L, 0 if acc is None else acc.data_ptr(),
-            out.data_ptr(), gpb, threads, mask, ck.lf.field_id, stream)
-        cudabuild.check(err, "reef_padd_reduce")
+        cudabuild.launch(
+            "padd", "reef_padd_reduce", X.device, X.data_ptr(),
+            X.stride(1), n_out, C, X.stride(2), X.stride(4), X.stride(3), L,
+            0 if acc is None else acc.data_ptr(), out.data_ptr(), gpb,
+            threads, mask, ck.lf.field_id)
         cudabuild.count("padd")
         cudabuild.count("padd_reduce")
     return out

@@ -52,12 +52,6 @@ def _check_rows(name: str, t: torch.Tensor, rows: int) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-def _stream(t: torch.Tensor) -> int:
-    if t.device.type != "cuda":
-        raise ValueError(f"unsupported device {t.device}")
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def mont_mul(f: LimbField, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(16, B) x (16, B) -> (16, B) int64 Montgomery product, lane by lane:
     K3 on a CUDA tensor, `limb.mul` on a CPU tensor."""
@@ -65,15 +59,13 @@ def mont_mul(f: LimbField, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check_rows("b", b, N)
     if a.shape != b.shape or a.device != b.device:
         raise ValueError("a and b differ in shape or device")
-    if a.device.type == "cpu":
+    if not cudabuild.on_card("mont_mul", a):
         return _BASE_MUL(f, a, b)
-    stream = _stream(a)
     out = torch.empty_like(a)
     if a.shape[1]:
-        lib = cudabuild.library("mont")
-        err = lib.reef_mont_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                a.shape[1], f.field_id, stream)
-        cudabuild.check(err, "reef_mont_mul")
+        cudabuild.launch("mont", "reef_mont_mul", a.device, a.data_ptr(),
+                         b.data_ptr(), out.data_ptr(), a.shape[1],
+                         f.field_id)
         cudabuild.count("mont_mul")
     return out
 
@@ -83,16 +75,14 @@ def mont_redc_cols(f: LimbField, cols: torch.Tensor) -> torch.Tensor:
     elements (the input contract of `limb.redc_cols`): K4 on a CUDA
     tensor, `limb.redc_cols` on a CPU tensor."""
     _check_rows("cols", cols, 2 * N)
-    if cols.device.type == "cpu":
+    if not cudabuild.on_card("mont_redc_cols", cols):
         return _BASE_REDC(f, cols)
-    stream = _stream(cols)
     out = torch.empty((N, cols.shape[1]), dtype=torch.int64,
                       device=cols.device)
     if cols.shape[1]:
-        lib = cudabuild.library("mont")
-        err = lib.reef_mont_redc(cols.data_ptr(), out.data_ptr(),
-                                 cols.shape[1], f.field_id, stream)
-        cudabuild.check(err, "reef_mont_redc")
+        cudabuild.launch("mont", "reef_mont_redc", cols.device,
+                         cols.data_ptr(), out.data_ptr(), cols.shape[1],
+                         f.field_id)
         cudabuild.count("mont_redc")
     return out
 

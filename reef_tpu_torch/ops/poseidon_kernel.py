@@ -7,7 +7,7 @@ whatever B, and counts the launch.  ops.poseidon_device.permute is the
 wrapper that callers use: it sends CUDA tensors here and runs the plain
 version on CPU tensors.  The kernel's round constants and MDS are copied
 into its constant banks (and their global copies) once per process,
-field and width.  Every launch adds one to the `poseidon` count, a
+field, width and card.  Every launch adds one to the `poseidon` count, a
 SPREAD launch one to `poseidon_spread` as well.
 
 K5 has two launches: THREAD gives each state one thread (the Merkle
@@ -30,7 +30,9 @@ THREAD, SPREAD = 0, 1
 # H100 at both widths (the sweep of chip_smoke.py's poseidon phase)
 THREAD_MIN_B = 4096
 
-_CONSTS_SET: Set[Tuple[int, int]] = set()
+# (card, field id, t) whose constants are set: cudaMemcpyToSymbol fills
+# the constant banks of the current device only
+_CONSTS_SET: Set[Tuple[torch.device, int, int]] = set()
 
 
 def route(B: int) -> int:
@@ -38,22 +40,25 @@ def route(B: int) -> int:
     return SPREAD if B < THREAD_MIN_B else THREAD
 
 
-def _set_consts(lib, lf: LimbField, t: int) -> None:
-    if (lf.field_id, t) in _CONSTS_SET:
+def _set_consts(lf: LimbField, t: int, device: torch.device) -> None:
+    """Fill K5's constants for (lf, t) on `device`, once per process."""
+    key = (device, lf.field_id, t)
+    if key in _CONSTS_SET:
         return
     from .poseidon_device import _device_consts
     rc, mds = _device_consts(lf, t)
-    err = lib.reef_poseidon_set_consts(lf.field_id, t, rc.ctypes.data,
-                                       mds.ctypes.data)
+    with torch.cuda.device(device):
+        err = cudabuild.library("poseidon").reef_poseidon_set_consts(
+            lf.field_id, t, rc.ctypes.data, mds.ctypes.data)
     cudabuild.check(err, "reef_poseidon_set_consts")
-    _CONSTS_SET.add((lf.field_id, t))
+    _CONSTS_SET.add(key)
 
 
 def launch(lf: LimbField, state: torch.Tensor,
            path: Optional[int] = None) -> torch.Tensor:
     """(t, 8, B) int32 CUDA tensor -> a new one, each state permuted, by
     the launch `path` (THREAD or SPREAD; default `route(B)`)."""
-    if state.device.type != "cuda":
+    if not cudabuild.on_card("K5", state):
         raise ValueError(f"K5: a CUDA tensor is needed, not {state.device}")
     t = state.shape[0]
     if t not in (5, 9):
@@ -67,12 +72,10 @@ def launch(lf: LimbField, state: torch.Tensor,
     if path not in (THREAD, SPREAD):
         raise ValueError(f"K5: no launch {path}")
     if B:
-        lib = cudabuild.library("poseidon")
-        _set_consts(lib, lf, t)
-        stream = torch.cuda.current_stream(state.device).cuda_stream
-        err = lib.reef_poseidon(state.data_ptr(), out.data_ptr(), B, t,
-                                lf.field_id, path, stream)
-        cudabuild.check(err, "reef_poseidon")
+        _set_consts(lf, t, state.device)
+        cudabuild.launch("poseidon", "reef_poseidon", state.device,
+                         state.data_ptr(), out.data_ptr(), B, t,
+                         lf.field_id, path)
         cudabuild.count("poseidon")
         if path == SPREAD:
             cudabuild.count("poseidon_spread")

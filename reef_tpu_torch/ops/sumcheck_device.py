@@ -17,11 +17,15 @@ coefficients, the final claim and the sponge state come back in one copy
 at the end.  The initial absorb (combined qs, lookup values, running
 claim) runs on the host sponge, whose state then moves to the device.  On
 CPU tensors every step runs its kernel's plain version.
+
+A DeviceTableCache may split the table over the devices of a mesh
+(parallel.mesh) by its low bits; its rounds (`sharded_rounds`) then run
+the coefficients and the folds on each shard and the sponge on the lead.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,20 +36,46 @@ from .limb import LimbField
 from .poseidon import HostSponge
 
 
+def _table_words(lf: LimbField, table: List[int]) -> Tuple[int, np.ndarray]:
+    """(ell, the table Montgomery-encoded and padded with zeros to 2^ell
+    entries as (8, 2^ell) int32 words)."""
+    ell = max(1, (len(table) - 1).bit_length())
+    words = np.zeros((1 << ell, limb.N32), np.uint32)
+    words[:len(table)] = limb.mont_words(lf, table)
+    return ell, words.view(np.int32).T
+
+
 class DeviceTableCache:
     """Montgomery-encoded device copy of a (constant) lookup table, padded
-    with zeros to 2^ell entries, as an (8, 2^ell) int32 table."""
+    with zeros to 2^ell entries, split over `devices` (default: whole on
+    the engine device) by its low bits: shard d, an (8, 2^ell / m) table
+    on devices[d], holds entries d, d + m, d + 2m, ...  m is a power of
+    two, at most 2^ell.  An MSB-first round pairs entries j and j + half;
+    while half >= m both lie on shard j mod m, at local k and k + half / m,
+    so every shard runs the ordinary round on its own entries.  `device`
+    is the lead, devices[0]."""
 
-    def __init__(self, lf: LimbField, table: List[int], device=None):
+    def __init__(self, lf: LimbField, table: List[int], device=None,
+                 devices=None):
         from ..utils.device import resolve
         self.lf = lf
-        self.device = resolve(device)
-        self.ell = max(1, (len(table) - 1).bit_length())
-        n = 1 << self.ell
-        words = np.zeros((n, limb.N32), np.uint32)
-        words[:len(table)] = limb.mont_words(lf, table)
-        self.t_dev = torch.from_numpy(
-            np.ascontiguousarray(words.view(np.int32).T)).to(self.device)
+        self.devices = [resolve(d) for d in (devices or [device])]
+        self.device = self.devices[0]
+        self.ell, words = _table_words(lf, table)
+        m = len(self.devices)
+        if m & (m - 1) or m > 1 << self.ell:
+            raise ValueError(f"a table of 2^{self.ell} entries does not "
+                             f"split over {m} devices (a power of two, at "
+                             "most the table's size)")
+        self.t_shards = self.split(torch.from_numpy(
+            np.ascontiguousarray(words)))
+
+    def split(self, tab: torch.Tensor) -> List[torch.Tensor]:
+        """An (8, 2^ell) table split as the shards are, shard d on
+        devices[d] (one device: the table itself, moved there)."""
+        m = len(self.devices)
+        return [tab[:, d::m].contiguous().to(dev)
+                for d, dev in enumerate(self.devices)]
 
 
 def build_eq(lf: LimbField, ell: int, qs_idx: torch.Tensor,
@@ -87,12 +117,93 @@ def sumcheck_rounds(lf: LimbField, t_tab: torch.Tensor, eq_tab: torch.Tensor,
     return torch.stack(rs), torch.stack(gs), t_tab, state
 
 
+_SUM_PATTERNS = {}
+
+
+def _sum_pattern(lf: LimbField, m: int, half: int,
+                 device: torch.device) -> torch.Tensor:
+    """The eq halves of `sum_coeffs`: (8, 2 half), e0 = 1 at columns
+    [0, 2m), e1 = 1 at [0, 3m), 0 elsewhere (cached)."""
+    key = (lf.field_id, m, half, device)
+    e = _SUM_PATTERNS.get(key)
+    if e is None:
+        one = lf.encode32([1], device)
+        e = torch.zeros((limb.N32, 2 * half), dtype=torch.int32,
+                        device=device)
+        e[:, :2 * m] = one
+        e[:, half:half + 3 * m] = one
+        e = _SUM_PATTERNS[key] = e
+    return e
+
+
+def sum_coeffs(lf: LimbField, parts: List[torch.Tensor], lead: torch.device,
+               state: Optional[torch.Tensor] = None):
+    """The sums mod p of m coefficient triples (3, 8, 1) (xsq, x, con), on
+    `lead`, and with a sponge state there also the state with them
+    absorbed: one coefficient launch (K6 `coeffs`) over pairs whose
+    entries are the triples' values, 0 and 1.  Shard i's con is the pair
+    t0 = t1 = con, e0 = e1 = 1 (it adds con to con and nothing else), its
+    x the pair t0 = 0, t1 = x, e0 = e1 = 1 (x to x), its xsq the pair
+    t0 = e0 = 0, t1 = xsq, e1 = 1 (xsq to xsq); the other pairs are 0."""
+    m = len(parts)
+    half = 1 << (3 * m - 1).bit_length()
+    G = torch.cat([g.to(lead) for g in parts], dim=2)       # (3, 8, m)
+    t = torch.zeros((limb.N32, 2 * half), dtype=torch.int32, device=lead)
+    t[:, :m] = G[2]
+    t[:, half:half + 3 * m] = G.flip(0).permute(1, 0, 2).reshape(
+        limb.N32, 3 * m)                                    # con, x, xsq
+    e = _sum_pattern(lf, m, half, lead)
+    return K.coeffs(lf, t[:, :half], t[:, half:], e[:, :half], e[:, half:],
+                    state)
+
+
+def sharded_rounds(lf: LimbField, t_shards: List[torch.Tensor],
+                   e_shards: List[torch.Tensor], state: torch.Tensor,
+                   ell: int):
+    """`sumcheck_rounds` over tables split by their low bits over m shards
+    (DeviceTableCache), the sponge state on the lead (the first shard's
+    device); one shard is `sumcheck_rounds` itself.  While a shard holds
+    two entries or more, each round's coefficients are each shard's (K6
+    `coeffs`) summed and absorbed on the lead (`sum_coeffs`), the lead
+    permutes (K5), and every shard folds by the challenge (K6 `fold`);
+    then the lead gathers the m entries, entry d from shard d, and runs
+    the last log2 m rounds alone.  No host sync: shards on different
+    cards overlap, shards on one card share its current stream (K6's
+    ticket is one a card)."""
+    m = len(t_shards)
+    if m == 1:
+        return sumcheck_rounds(lf, t_shards[0], e_shards[0], state, ell)
+    lead = state.device
+    rs, gs = [], []
+    while t_shards[0].shape[1] > 1:
+        h = t_shards[0].shape[1] // 2
+        parts = [K.coeffs(lf, t[:, :h], t[:, h:], e[:, :h], e[:, h:])[0]
+                 for t, e in zip(t_shards, e_shards)]
+        g, state = sum_coeffs(lf, parts, lead, state)
+        state = poseidon_device.permute(lf, state)
+        r = state[1]
+        folded = [K.fold(lf, t[:, :h], t[:, h:], e[:, :h], e[:, h:],
+                         r.to(t.device))
+                  for t, e in zip(t_shards, e_shards)]
+        t_shards = [tf for tf, _ in folded]
+        e_shards = [ef for _, ef in folded]
+        rs.append(r)
+        gs.append(g)
+    t_tab = torch.cat([t.to(lead) for t in t_shards], dim=1)
+    e_tab = torch.cat([e.to(lead) for e in e_shards], dim=1)
+    rs2, gs2, final_t, state = sumcheck_rounds(lf, t_tab, e_tab, state,
+                                               m.bit_length() - 1)
+    return (torch.stack(rs + list(rs2)), torch.stack(gs + list(gs2)),
+            final_t, state)
+
+
 def device_sumcheck_rounds(lf: LimbField, cache: DeviceTableCache,
                            qs: List[int], rs: List[int], prev_q: List[int],
                            sponge: HostSponge
                            ) -> Tuple[List[int], List[Tuple[int, int, int]],
                                       int]:
-    """Run all rounds on the cache's device, syncing the host sponge after.
+    """Run all rounds on the cache's devices (`sharded_rounds`), syncing
+    the host sponge after.
 
     rs = [r^1..r^{m+1}] claim powers; returns (sc_rs, g_coeffs, next_v)."""
     ell, dev, p = cache.ell, cache.device, lf.p_int
@@ -118,8 +229,9 @@ def device_sumcheck_rounds(lf: LimbField, cache: DeviceTableCache,
                       lf.encode32([rs[len(qs)]], dev),
                       lf.encode32(prev_q, dev))
 
-    rs_out, gs_out, final_t, state = sumcheck_rounds(
-        lf, cache.t_dev, eq_tab, state, ell)
+    # the eq table is built whole on the lead, then split as the table is
+    rs_out, gs_out, final_t, state = sharded_rounds(
+        lf, cache.t_shards, cache.split(eq_tab), state, ell)
     # one copy back: challenges, coefficients, final claim, sponge state
     back = torch.cat([rs_out.permute(1, 0, 2).reshape(limb.N32, -1),
                       gs_out.permute(2, 0, 1, 3).reshape(limb.N32, -1),

@@ -50,19 +50,6 @@ def _check_rows(name: str, *ts: torch.Tensor) -> None:
                              "device")
 
 
-def _cuda(name: str, t: torch.Tensor) -> bool:
-    """True on a CUDA tensor, False on a CPU tensor, else raise."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {t.device}")
-    return True
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 # ---- round coefficients (+ sponge absorb) -----------------------------------
 
 def _tree_sum(lf: LimbField, a: torch.Tensor) -> torch.Tensor:
@@ -140,10 +127,8 @@ def coeffs(lf: LimbField, t0: torch.Tensor, t1: torch.Tensor,
         raise ValueError(f"coeffs: state {tuple(state.shape)} is not a "
                          "contiguous (t >= 4, 8, 1) int32 tensor beside "
                          "the tables")
-    if not _cuda("coeffs", t0):
+    if not cudabuild.on_card("coeffs", t0):
         return coeffs_plain(lf, t0, t1, e0, e1, state)
-    lib = cudabuild.library("sumcheck")
-    stream = _stream(t0)
     g = torch.empty((3, limb.N32, 1), dtype=torch.int32, device=t0.device)
     st_out = None if state is None else torch.empty_like(state)
     st_args = ((0, 0, 0) if state is None
@@ -154,13 +139,13 @@ def coeffs(lf: LimbField, t0: torch.Tensor, t1: torch.Tensor,
         partial = torch.empty((3, limb.N32, grid), dtype=torch.int32,
                               device=t0.device)
         ticket = _ticket(t0.device)
-    err = lib.reef_sc_coeffs(
-        t0.data_ptr(), t1.data_ptr(), e0.data_ptr(), e1.data_ptr(),
-        t0.stride(0), e0.stride(0), half, grid, threads,
+    cudabuild.launch(
+        "sumcheck", "reef_sc_coeffs", t0.device, t0.data_ptr(),
+        t1.data_ptr(), e0.data_ptr(), e1.data_ptr(), t0.stride(0),
+        e0.stride(0), half, grid, threads,
         *((0, 0) if partial is None else (partial.data_ptr(),
                                           ticket.data_ptr())),
-        g.data_ptr(), *st_args, lf.field_id, stream)
-    cudabuild.check(err, "reef_sc_coeffs")
+        g.data_ptr(), *st_args, lf.field_id)
     cudabuild.count("sumcheck_coeffs")
     return g, st_out
 
@@ -191,16 +176,16 @@ def fold(lf: LimbField, t0: torch.Tensor, t1: torch.Tensor,
             len({t0.device, e0.device, r.device}) != 1:
         raise ValueError("fold: halves differ in length, r is not one "
                          "row, or the devices differ")
-    if not _cuda("fold", t0):
+    if not cudabuild.on_card("fold", t0):
         return fold_plain(lf, t0, t1, e0, e1, r)
     t_out = torch.empty((limb.N32, half), dtype=torch.int32,
                         device=t0.device)
     e_out = torch.empty_like(t_out)
-    err = cudabuild.library("sumcheck").reef_sc_fold(
-        t0.data_ptr(), t1.data_ptr(), e0.data_ptr(), e1.data_ptr(),
-        t0.stride(0), e0.stride(0), r.data_ptr(), r.stride(0),
-        t_out.data_ptr(), e_out.data_ptr(), half, lf.field_id, _stream(t0))
-    cudabuild.check(err, "reef_sc_fold")
+    cudabuild.launch(
+        "sumcheck", "reef_sc_fold", t0.device, t0.data_ptr(), t1.data_ptr(),
+        e0.data_ptr(), e1.data_ptr(), t0.stride(0), e0.stride(0),
+        r.data_ptr(), r.stride(0), t_out.data_ptr(), e_out.data_ptr(), half,
+        lf.field_id)
     cudabuild.count("sumcheck_fold")
     return t_out, e_out
 
@@ -236,14 +221,13 @@ def eq_step(lf: LimbField, term: torch.Tensor, q: torch.Tensor,
             raise ValueError("eq_step: eq is not contiguous")
     if not term.is_contiguous():
         raise ValueError("eq_step: term is not contiguous")
-    if not _cuda("eq_step", term):
+    if not cudabuild.on_card("eq_step", term):
         return eq_step_plain(lf, term, q, eq)
     out = torch.empty((limb.N32, 2 * m), dtype=torch.int32,
                       device=term.device)
-    err = cudabuild.library("sumcheck").reef_sc_eq_step(
-        term.data_ptr(), m, q.data_ptr(), q.stride(0),
-        0 if eq is None else eq.data_ptr(), out.data_ptr(), lf.field_id,
-        _stream(term))
-    cudabuild.check(err, "reef_sc_eq_step")
+    cudabuild.launch(
+        "sumcheck", "reef_sc_eq_step", term.device, term.data_ptr(), m,
+        q.data_ptr(), q.stride(0), 0 if eq is None else eq.data_ptr(),
+        out.data_ptr(), lf.field_id)
     cudabuild.count("sumcheck_eq")
     return out

@@ -8,9 +8,11 @@ package's build directory under a name keyed on a hash of every csrc
 file and the flags, so an edited source or flag set is never served a
 stale library.  `build()` starts one nvcc per source, all at once.
 
-Every wrapper of a kernel calls `count(kernel)` once per launch of that
-kernel (a library may hold several, one per launcher); a run shows that
-it went through the kernels by reading `launch_counts()`.
+Every wrapper of a kernel calls its launcher through `launch`, which
+makes the tensor's card current for the call, and calls `count(kernel)`
+once per launch of that kernel (a library may hold several, one per
+launcher); a run shows that it went through the kernels by reading
+`launch_counts()`.
 """
 
 from __future__ import annotations
@@ -149,6 +151,30 @@ def library(name: str) -> ctypes.CDLL:
         lib.reef_cuda_error_string.restype = ctypes.c_char_p
         _LOADED[name] = lib
     return lib
+
+
+def on_card(name: str, t) -> bool:
+    """Whether the wrapper `name` launches its kernel for the tensor t:
+    True on a CUDA tensor, False on a CPU tensor (its plain version
+    runs), and any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return True
+
+
+def launch(name: str, fn: str, device, *args) -> None:
+    """Call the launcher `fn` of library `name` with `args` and the current
+    stream of `device`, with `device` current: `<<<>>>` and
+    `cudaMemcpyToSymbol` act on the current device whatever stream they
+    are handed, so without the switch a kernel for a second card would
+    run on the first.  Raises if the launcher reports a CUDA error."""
+    import torch
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(library(name), fn)(*args, stream)
+    check(err, fn)
 
 
 def check(err: int, what: str) -> None:

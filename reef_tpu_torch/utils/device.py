@@ -6,11 +6,13 @@ the device bases read it.  Asking for CUDA where torch sees no CUDA device
 raises: nothing carries on on the CPU unless the CPU was asked for, in
 which case the kernels' plain versions run there.
 
-Classification for the "auto" routing gate (commitment._device_msm_on):
+Classification for the "auto" routing gates (commitment._device_msm_on,
+witness._maybe_device_cache):
   "cpu"          — the engine device is the CPU, or none was selected and
-                   torch sees no CUDA device: auto stays on the host MSM;
+                   torch sees no CUDA device: auto stays on the host;
   "local-accel"  — the engine device is a CUDA card: auto engages it.
-(REEF_DEVICE_PROFILE overrides the classification.)
+(REEF_DEVICE_PROFILE overrides the classification.)  The devices the
+device routes spread over are the process mesh's (parallel.mesh).
 """
 
 from __future__ import annotations
@@ -60,3 +62,12 @@ def device_profile() -> str:
         return "local-accel" if _SELECTED.type == "cuda" else "cpu"
     return "local-accel" if torch.cuda.is_available() else "cpu"
 
+
+
+def accel_device_count() -> int:
+    """The number of devices of the process mesh (parallel.mesh
+    `process_mesh`) on the "local-accel" profile, 0 on "cpu"."""
+    if device_profile() == "cpu":
+        return 0
+    from ..parallel.mesh import process_mesh
+    return process_mesh().size

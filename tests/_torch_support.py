@@ -3,6 +3,9 @@
 Import both into a test module to make them apply to each of its tests.
 """
 
+import contextlib
+import types
+
 import jax
 import pytest
 import torch
@@ -29,3 +32,25 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(prev)
+
+
+@pytest.fixture
+def stand_in_card(monkeypatch):
+    """For launch tests on CPU tensors with a stand-in library: a
+    stand-in `torch.cuda.device` that records the device it makes
+    current (`card.current`, None outside it) and a `current_stream`
+    that hands out stream 0."""
+    card = types.SimpleNamespace(current=None)
+
+    @contextlib.contextmanager
+    def make_current(dev):
+        prev, card.current = card.current, torch.device(dev)
+        try:
+            yield
+        finally:
+            card.current = prev
+
+    monkeypatch.setattr(torch.cuda, "device", make_current)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    return card

@@ -2,7 +2,8 @@
 
 The two packages' files must work with each other: a seeded commitment
 is byte-identical, and each side's verifier accepts the other side's
-`.cmt`/`.proof` pair (proofs are randomised, so their bytes differ).  The
+`.cmt`/`.proof` pair (proofs are randomised, so their bytes differ), also
+when the port proves on a mesh of eight CPU shards.  The
 port also must not import JAX or the JAX package, and `chip_smoke.py`
 must refuse to run where torch sees no CUDA device.
 """
@@ -23,7 +24,8 @@ from _torch_support import (no_compile_cache_writes,  # noqa: F401
                             one_torch_thread)
 from reef_tpu import cli as ref_cli
 from reef_tpu_torch import cli
-from reef_tpu_torch.ops import poseidon_device
+from reef_tpu_torch.ops import poseidon_device, sumcheck_device
+from reef_tpu_torch.parallel import mesh
 from reef_tpu_torch.utils import device
 
 pytestmark = pytest.mark.e2e
@@ -35,6 +37,8 @@ MERKLE = ("ascii", "aaaaaaaab", ".*b", ["-m"])
 NEGATE = ("ascii", "aa", "^ab$", ["-n"])
 DNA = ("dna", "ACGTTGCAAC", ".*TTG.*", [])
 PROJ_HYBRID = ("dna", "A" * 36 + "ACGT", "^.{36}ACGT$", ["-p", "-y"])
+# a document table of at least 16 entries, which splits over 8 shards
+DNA_MESH = ("dna", "ACGTTGCAAC" * 2, ".*TTG.*", [])
 
 
 @pytest.fixture(autouse=True)
@@ -130,6 +134,32 @@ def test_cross_verify_device_sumcheck(monkeypatch, tmp_path, case, prover):
         _ref("--prove", case)
         out = _port("--verify", case)
     assert "Verification PASSED" in out
+
+
+def test_cross_verify_mesh_sumcheck(monkeypatch, tmp_path):
+    """The port proves with every nlookup batch on its device route over a
+    process mesh of eight CPU shards (the document's table split over
+    them, `sharded_rounds`; the smaller transition table on the lead), and
+    the JAX package verifies."""
+    (tmp_path / "doc.txt").write_text(DNA_MESH[1])
+    monkeypatch.setenv("REEF_DEVICE_MSM", "0")
+    monkeypatch.setenv("REEF_DEVICE_SUMCHECK", "1")
+    monkeypatch.setattr(mesh, "_PROCESS_MESH", None)
+    mesh.select(["cpu"] * 8)
+    sharded = []
+    orig = sumcheck_device.sharded_rounds
+
+    def counted(lf, t_shards, *a):
+        if len(t_shards) > 1:
+            sharded.append(len(t_shards))
+        return orig(lf, t_shards, *a)
+
+    monkeypatch.setattr(sumcheck_device, "sharded_rounds", counted)
+    _port("--commit", DNA_MESH)
+    _port("--prove", DNA_MESH)
+    assert sharded and set(sharded) == {8}
+    monkeypatch.setenv("REEF_DEVICE_SUMCHECK", "0")
+    assert "Verification PASSED" in _ref("--verify", DNA_MESH)
 
 
 def test_serve_answers_requests(tmp_path):

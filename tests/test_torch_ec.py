@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from _torch_support import (no_compile_cache_writes,  # noqa: F401
-                            one_torch_thread)
+                            one_torch_thread, stand_in_card)
 from reef_tpu.ec import msm as ref_msm
 from reef_tpu.ec import pallas_ec as ref_pe
 from reef_tpu_torch import convert
@@ -187,13 +187,9 @@ def test_kernels_match_plain_on_card(name):
             before + len(msm_v3.tree_plan(cap))
 
 
-class _Stream:
-    cuda_stream = 0
-
-
 @pytest.mark.parametrize("B", [1, PD.THREAD_MIN_B - 1, PD.THREAD_MIN_B,
                                PD.THREAD_MIN_B + 1])
-def test_padd_soa_routes_by_batch_and_path(B, monkeypatch):
+def test_padd_soa_routes_by_batch_and_path(B, monkeypatch, stand_in_card):
     """`route` sends batches below THREAD_MIN_B to SPREAD; `launch` hands
     the library the path it is given and counts `padd`, and `padd_spread`
     for SPREAD (a stand-in library records the call; nothing launches);
@@ -205,11 +201,11 @@ def test_padd_soa_routes_by_batch_and_path(B, monkeypatch):
 
     class Lib:
         def reef_padd(self, p, q, o, b, field, path, stream):
+            assert stand_in_card.current == P.device
             calls.append((b, field, path))
             return 0
 
     monkeypatch.setattr(PD.cudabuild, "library", lambda name: Lib())
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream)
     ck = msm.pallas_kernels()
     P = torch.zeros((3, 8, B), dtype=torch.int32)
     for path in (PD.THREAD, PD.SPREAD):
@@ -337,7 +333,8 @@ def _emulate_reduce(ck, X, args):
 
 @pytest.mark.parametrize("name", sorted(CURVES))
 @pytest.mark.parametrize("view", ["fenwick", "digits", "strided"])
-def test_padd_reduce_launch_addresses_its_points(name, view, monkeypatch):
+def test_padd_reduce_launch_addresses_its_points(name, view, monkeypatch,
+                                                 stand_in_card):
     """The arguments padd_reduce hands the library (strides, plan, acc),
     run through an emulation of the kernel's indexing, give the plain
     sums: the Fenwick shape (levels x digits, with acc), the digit axis of
@@ -354,14 +351,14 @@ def test_padd_reduce_launch_addresses_its_points(name, view, monkeypatch):
         def reef_padd_reduce(self, x, row, n_out, inner, s_hi, s_lo, s_l, L,
                              acc_p, out, gpb, threads, mask, field, stream):
             assert x == X.data_ptr() and field == ck.lf.field_id
+            assert stand_in_card.current == X.device
             assert acc_p == (0 if acc is None else acc.data_ptr())
             calls.append((row, n_out, inner, s_hi, s_lo, s_l, L, acc, gpb,
                           threads, mask))
             return 0
 
     monkeypatch.setattr(PD.cudabuild, "library", lambda name: Lib())
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream)
-    monkeypatch.setattr(PD, "_device", lambda name, t: True)
+    monkeypatch.setattr(PD.cudabuild, "on_card", lambda name, t: True)
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: type("Props", (), {
                             "multi_processor_count": 132}))

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from _torch_support import (no_compile_cache_writes,  # noqa: F401
-                            one_torch_thread)
+                            one_torch_thread, stand_in_card)
 from reef_tpu.ec import msm as ref_msm
 from reef_tpu.ec import msm_v3 as ref_v3
 from reef_tpu.ec import native_msm as ref_native
@@ -104,7 +104,8 @@ def test_msm_sums_through_one_reduce_a_chunk(name, cap, n, cpu_engine):
 
 
 @pytest.mark.parametrize("log", range(1, 17))
-def test_tree_plan_makes_every_level_once_in_order(log, monkeypatch):
+def test_tree_plan_makes_every_level_once_in_order(log, monkeypatch,
+                                                   stand_in_card):
     """K2's plan for cap = 2 .. 65536 makes levels 1..log2 cap, each once
     and in order, and `tree_launch` hands the library that run of levels
     in one call and counts one launch a level (a stand-in library records
@@ -116,12 +117,11 @@ def test_tree_plan_makes_every_level_once_in_order(log, monkeypatch):
 
     class Lib:
         def reef_tree_levels(self, src, out, W, cap_, lo, hi, field, stream):
+            assert stand_in_card.current == placed.device
             calls.append((W, cap_, lo, hi, field))
             return 0
 
     monkeypatch.setattr(msm_v3.cudabuild, "library", lambda name: Lib())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda dev: type("S", (), {"cuda_stream": 0}))
     ck = msm.pallas_kernels()
     placed = torch.zeros((2, 8, 1, cap), dtype=torch.int32)
     out = torch.zeros((3, 8, 1, cap), dtype=torch.int32)

@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from _torch_support import (no_compile_cache_writes,  # noqa: F401
-                            one_torch_thread)
+                            one_torch_thread, stand_in_card)
 from reef_tpu import cli as ref_cli
 from reef_tpu.backend import sumcheck as ref_sc
 from reef_tpu.backend.table import TransitionTable, doc_transform
@@ -89,7 +89,7 @@ def test_device_route_matches_reference(monkeypatch, name):
     want = ref_sc.nlookup_prove(f, table, qs, vs, prev_q, prev_v, "nldoc",
                                 doc_hash=12345)
     cache = SD.DeviceTableCache(limb.FQ, table, device="cpu")
-    assert cache.t_dev.shape == (8, 1 << ell)
+    assert [t.shape for t in cache.t_shards] == [(8, 1 << ell)]
     got = port_sc.nlookup_prove(f, table, qs, vs, prev_q, prev_v, "nldoc",
                                 doc_hash=12345, device_cache=cache)
     assert got.sc_rs == want.sc_rs
@@ -161,7 +161,7 @@ def test_device_cache_routing(monkeypatch, mode, profile, n, engaged):
     assert gen._maybe_device_cache("nldoc", table) is cache
     if engaged:
         assert cache.device.type == "cpu"
-        assert limb.FQ.decode32(cache.t_dev[:, :3]) == [0, 1, 2]
+        assert limb.FQ.decode32(cache.t_shards[0][:, :3]) == [0, 1, 2]
 
 
 def _run(main, argv) -> str:
@@ -241,12 +241,9 @@ def test_three_products_match_four(lf, half, table):
     assert torch.equal(_three_products(lf, *halves), g)
 
 
-class _Stream:
-    cuda_stream = 0
-
-
 @pytest.mark.parametrize("log_half", range(20))
-def test_coeff_plan_is_one_launch_a_round(log_half, monkeypatch):
+def test_coeff_plan_is_one_launch_a_round(log_half, monkeypatch,
+                                          stand_in_card):
     """At every half of a 2^20-entry sumcheck the coefficient pass is one
     launch, of whole warps, within the kernel's block and the plan's
     grid, with a partials buffer and the ticket exactly when it has more
@@ -264,13 +261,13 @@ def test_coeff_plan_is_one_launch_a_round(log_half, monkeypatch):
     class Lib:
         def reef_sc_coeffs(self, t0, t1, e0, e1, st, se, n, grid_, threads_,
                            partial, ticket, g, si, so, t, field, stream):
+            assert stand_in_card.current == T.device
             calls.append((n, grid_, threads_, partial != 0, ticket != 0,
                           so != 0, t))
             return 0
 
     monkeypatch.setattr(K.cudabuild, "library", lambda name: Lib())
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream)
-    monkeypatch.setattr(K, "_cuda", lambda name, t: True)
+    monkeypatch.setattr(K.cudabuild, "on_card", lambda name, t: True)
     lf = limb.FQ
     T = torch.zeros((8, 2 * half), dtype=torch.int32)
     st = torch.zeros((9, 8, 1), dtype=torch.int32)
