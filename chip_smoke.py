@@ -32,14 +32,21 @@ script exits non-zero and prints no result:
           with CUDA events, and one chunk of the plain pipeline on the
           card (a check of the algorithm, no yardstick of speed)
   poseidon  K5 (csrc/poseidon.cu) at t = 5, B = 2^19 (the 1 MB document's
-          Merkle leaves) against its plain version on a 4,096-state
-          sample plus the last state; both of its launches (a thread per
-          state, a block per state) at t = 5 and 9 on both fields at
-          B = 1, 2, 37 and the crossover -1, 0, +1 against the plain
-          version and a few states against the python host permutation,
-          and at t = 5 the mesh step's batch a shard on a sample;
-          exact.  The sweep of both launches' times over B = 2^0..2^15
-          that set the crossover (poseidon_kernel.THREAD_MIN_B)
+          Merkle leaves) and t = 9, B = 2^19 against its dense plain
+          version on a 4,096-state sample plus the last state; both of
+          its launches (a thread per state on sparse partial rounds, a
+          block per state on the dense ones) at t = 5 and 9 on both
+          fields on edge states (lanes 0, 1 and p - 1, as values and as
+          Montgomery words), at B = 1, 2, 37 and the crossover -1, 0, +1
+          against the plain version and a few states against the python
+          host permutation, and at t = 5 the mesh step's batch a shard
+          on a sample; exact.  The thread-per-state launch timed at
+          (5, 8, 2^19), (9, 8, 2^19) and bench.py's batch (5, 8, 2^14),
+          each beside its bound at the multiply-adds it runs (the
+          sparse rounds' wide products and Pasta REDCs) and at the dense
+          order's count of Montgomery products; the sweep of both launches'
+          times over B = 2^0..2^15 that set the crossover
+          (poseidon_kernel.THREAD_MIN_B)
   sumcheck  a full device nlookup_prove on 2^14 and 2^16 tables against
           the host route (exact transcript, both routes timed); K6
           (csrc/sumcheck.cu: coefficients, fold, eq step) against the
@@ -140,13 +147,43 @@ MULS_PER_PADD, MULS_PER_AFFINE_ADD = 14, 10
 # a Montgomery product (csrc/field.cuh): 8 CIOS rounds of two 8-limb
 # multiply-add chains (lo and hi halves: 32 mads) plus one m = t0*n0
 MADS_PER_MUL = 8 * (2 * 2 * 8 + 1)
+# K5's THREAD launch takes no fe_mul: a wide product (field.cuh wide_mul,
+# wide_mac) is 8 x 8 limb products, lo and hi halves, and a Pasta-shaped
+# REDC (pasta_redc) 8 rounds of 3 limb products, lo and hi halves
+MADS_PER_WIDE, MADS_PER_PASTA_REDC = 2 * 8 * 8, 8 * 2 * 3
 R_F, R_P = 8, {5: 56, 9: 57}    # Poseidon full and partial rounds
 
 
 def poseidon_muls(t: int) -> int:
-    """Montgomery products of one permutation: the S-box (3 products) on
-    every lane of the R_F full rounds and on lane 0 of the partial rounds,
-    and t^2 products of the MDS mix in every round."""
+    """Products of one permutation as K5's THREAD launch runs it (sparse
+    partial rounds): the S-box (3 products) on every lane of the R_F full
+    rounds and t^2 products of their dense mix; in each partial round the
+    lane-0 S-box, the lane-0 row (t) and one product on each other lane
+    (t - 1).  992 at t = 5, 2,004 at t = 9."""
+    return R_F * (3 * t + t * t) + R_P[t] * (3 + 2 * t - 1)
+
+
+def poseidon_redcs(t: int) -> int:
+    """REDCs of one permutation in K5's THREAD launch: one for each
+    S-box product, one a row of a full round's mix (4 t a full round);
+    in each partial round three for the lane-0 S-box, one for the lane-0
+    row and one for each other lane (t + 3).  608 at t = 5, 972 at
+    t = 9."""
+    return R_F * 4 * t + R_P[t] * (t + 3)
+
+
+def poseidon_thread_mads(t: int) -> int:
+    """Multiply-adds of one permutation in K5's THREAD launch: its wide
+    products and its Pasta-shaped REDCs.  156,160 at t = 5, 303,168 at
+    t = 9."""
+    return (poseidon_muls(t) * MADS_PER_WIDE
+            + poseidon_redcs(t) * MADS_PER_PASTA_REDC)
+
+
+def poseidon_muls_dense(t: int) -> int:
+    """Products of one permutation in the dense order, as K5's SPREAD
+    launch runs it: t^2 products of the mix in every round.  1,888 at
+    t = 5, 5,652 at t = 9."""
     return R_F * (3 * t + t * t) + R_P[t] * (3 + t * t)
 
 
@@ -167,6 +204,7 @@ MSM_N = 1 << 16
 ROWS, ROW_N = 4, 4096
 DNA_BYTES = 1_000_000
 POSEIDON_B = 1 << 19
+POSEIDON_BENCH_B = 1 << 14      # bench.py bench_poseidon's batch
 POSEIDON_CHECK_B = (1, 2, 37)
 POSEIDON_SWEEP_LOG = 15
 SAMPLE = 4096
@@ -543,9 +581,9 @@ def phase_tree(torch, dev, curves, mesh_shapes) -> dict:
 
 
 def phase_poseidon(torch, dev, mesh_shapes) -> dict:
-    """K5's two launches against the plain version, and at t = 5 the
-    mesh step's batch a shard (`mesh_path_shapes`) on a sample; returns
-    its kernel-table row."""
+    """K5's two launches against the dense plain version, edge states
+    included, and at t = 5 the mesh step's batch a shard
+    (`mesh_path_shapes`) on a sample; returns its kernel-table row."""
     from reef_tpu_torch.models.prover_step import random_elems
     from reef_tpu_torch.ops import limb, poseidon_device
     from reef_tpu_torch.ops import poseidon_kernel as PK
@@ -556,6 +594,17 @@ def phase_poseidon(torch, dev, mesh_shapes) -> dict:
 
     def states(t, B):
         return random_elems((t, B), g, dev).permute(1, 0, 2).contiguous()
+
+    def edge_states(f, t):
+        """Every lane 0, 1, p - 1, or the value whose Montgomery word is 1
+        or p - 1 (the largest word a lazy row sums); then 0, 1 and p - 1
+        cycled across the lanes."""
+        p = f.p_int
+        rows = [[v] * t for v in (0, 1, p - 1, f.unmont(1), f.unmont(p - 1))]
+        rows += [[(0, 1, p - 1)[(l + k) % 3] for l in range(t)]
+                 for k in range(3)]
+        return torch.stack([f.encode32([r[l] for r in rows], dev)
+                            for l in range(t)])
 
     def host_check(lf, X, Y, lanes):
         for b in lanes:
@@ -583,21 +632,44 @@ def phase_poseidon(torch, dev, mesh_shapes) -> dict:
                             plain(lf, Xb[:, :, ib].contiguous())))
         require(errs[-1] == 0, f"poseidon t=5 B={Bs}: kernel != plain "
                 f"(max {errs[-1]})")
+    # THREAD at t = 9 and at bench.py's batch, timed
+    X9 = states(9, B)
+    idx9 = sample_idx(torch, B, g, dev)
+    got9 = PK.launch(lf, X9, PK.THREAD)
+    X9s = X9[:, :, idx9].contiguous()
+    errs.append(max_err(got9[:, :, idx9], plain(lf, X9s)))
+    require(errs[-1] == 0, f"poseidon t=9 B={B}: kernel != plain "
+            f"(max {errs[-1]})")
+    host_check(lf, X9, got9, (0, B - 1))
+    ms9_big = cuda_ms(torch, lambda: PK.launch(lf, X9, PK.THREAD), reps=3)
+    plain9_big = cuda_ms(torch, lambda: plain(lf, X9s), reps=1)
+    Xb = X[:, :, :POSEIDON_BENCH_B].contiguous()
+    require(torch.equal(PK.launch(lf, Xb, PK.THREAD),
+                        got[:, :, :POSEIDON_BENCH_B]),
+            "poseidon t=5: the bench batch != the same states at 2^19")
+    ms5_bench = cuda_ms(torch, lambda: PK.launch(lf, Xb, PK.THREAD),
+                        reps=20)
     # both launches at every B of POSEIDON_CHECK_B and around the
-    # crossover, against one plain run over all those states
+    # crossover, and on the edge states, against one plain run over all
+    # those states
+    n_edge = 0
     for f in (limb.FQ, limb.FP):
         for t in (5, 9):
             cross = PK.THREAD_MIN_B
             sizes = sorted(set(POSEIDON_CHECK_B) | {cross - 1, cross,
                                                     cross + 1})
-            Ys = [states(t, Bs) for Bs in sizes]
+            E = edge_states(f, t)
+            n_edge += E.shape[2]
+            Ys = [E] + [states(t, Bs) for Bs in sizes]
             want = plain(f, torch.cat(Ys, dim=2))
             for path in (PK.THREAD, PK.SPREAD):
                 gots = torch.cat([PK.launch(f, Y, path) for Y in Ys], dim=2)
                 errs.append(max_err(gots, want))
                 require(errs[-1] == 0, f"poseidon t={t} {f.name} path "
                         f"{path}: kernel != plain (max {errs[-1]})")
-            host_check(f, Ys[0], PK.launch(f, Ys[0], PK.SPREAD), (0,))
+            host_check(f, E, PK.launch(f, E, PK.THREAD),
+                       range(E.shape[2]))
+            host_check(f, Ys[1], PK.launch(f, Ys[1], PK.SPREAD), (0,))
             host_check(f, Ys[-1], PK.launch(f, Ys[-1], PK.THREAD),
                        (sizes[-1] - 1,))
     # the sweep that set THREAD_MIN_B: both launches on Fq at B = 2^k
@@ -613,10 +685,29 @@ def phase_poseidon(torch, dev, mesh_shapes) -> dict:
     ms9 = cuda_ms(torch, lambda: permute(lf, Y1), reps=50)
     thread9 = cuda_ms(torch, lambda: PK.launch(lf, Y1, PK.THREAD), reps=10)
     plain9 = cuda_ms(torch, lambda: plain(lf, Y1), reps=1)
-    bms5, by5 = bound_ms(2 * 5 * 32 * B, B * poseidon_muls(5) * MADS_PER_MUL)
-    bms9, by9 = bound_ms(2 * 9 * 32, poseidon_muls(9) * MADS_PER_MUL)
+    # THREAD runs the sparse rounds on wide products and Pasta REDCs,
+    # SPREAD the dense ones on fe_mul; beside THREAD's bounds, the int
+    # bound of the dense order on fe_mul
+    bounds = {}
+    for t, Bt in ((5, B), (9, B), (5, POSEIDON_BENCH_B)):
+        mads = Bt * poseidon_thread_mads(t)
+        bounds[f"t{t}_b{Bt}"] = {
+            "bound_ms": bound_ms(2 * t * 32 * Bt, mads)[0],
+            "int_bound_ms": int_bound_ms(mads),
+            "int_bound_ms_dense_count": int_bound_ms(
+                Bt * poseidon_muls_dense(t) * MADS_PER_MUL)}
+    bms5, by5 = bound_ms(2 * 5 * 32 * B, B * poseidon_thread_mads(5))
+    bms9, by9 = bound_ms(2 * 9 * 32, poseidon_muls_dense(9) * MADS_PER_MUL)
     emit("poseidon", t0, t5_states=B, t5_ms=ms5, t5_bound_ms=bms5,
-         t5_plain_ms_on_sample=plain5, sample=SAMPLE, t9_b1_ms=ms9,
+         t5_plain_ms_on_sample=plain5, sample=SAMPLE,
+         t9_b2e19_thread_ms=ms9_big, t9_plain_ms_on_sample=plain9_big,
+         t5_b2e14_thread_ms=ms5_bench,
+         t5_b2e14_states_per_s=POSEIDON_BENCH_B / ms5_bench * 1e3,
+         thread_bounds=bounds, products={
+             t: [poseidon_muls(t), poseidon_muls_dense(t)] for t in (5, 9)},
+         thread_redcs={t: poseidon_redcs(t) for t in (5, 9)},
+         thread_mads={t: poseidon_thread_mads(t) for t in (5, 9)},
+         edge_states=n_edge, t9_b1_ms=ms9,
          t9_b1_thread_ms=thread9, t9_b1_bound_ms=bms9,
          t9_b1_plain_ms=plain9, t5_states_per_s=B / ms5 * 1e3,
          thread_min_b=PK.THREAD_MIN_B,
@@ -628,12 +719,15 @@ def phase_poseidon(torch, dev, mesh_shapes) -> dict:
         "replaces": "reef_tpu/ops/poseidon_pallas.py:185",
         "max_abs_err": max(errs), "ms": ms9, "plain_ms": plain9,
         "bound_ms": bms9, "bound_by": by9, "library_ms": None,
-        "int_bound_ms": int_bound_ms(poseidon_muls(9) * MADS_PER_MUL),
+        "int_bound_ms": int_bound_ms(poseidon_muls_dense(9) * MADS_PER_MUL),
         "shape": "(9, 8, 1) int32, Fq: a sumcheck round's sponge (the "
-                 "SPREAD launch)",
+                 "SPREAD launch, dense rounds)",
         "t9_b1_thread_ms": thread9,
         "t5_b2e19_ms": ms5, "t5_b2e19_bound_ms": bms5,
-        "t5_b2e19_bound_by": by5, "t5_plain_ms_on_4096": plain5}
+        "t5_b2e19_bound_by": by5, "t5_plain_ms_on_4096": plain5,
+        "t9_b2e19_ms": ms9_big, "t9_plain_ms_on_4096": plain9_big,
+        "t5_b2e14_ms": ms5_bench,
+        "thread_bounds": bounds}
 
 
 def phase_sumcheck(torch, dev, rnd) -> dict:

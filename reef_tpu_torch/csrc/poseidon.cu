@@ -10,22 +10,28 @@
 // is signed) followed by a 32-column REDC.  None of that carries over.
 //
 // perm_kernel, for large B: one thread owns one state and keeps it in
-// registers for all R_F + R_P rounds (8 + 56 at t = 5, 8 + 57 at t = 9):
-// add the round constants, the x^5 S-box as three field.cuh products
-// (every lane in the four first and four last rounds, lane 0 in the
-// partial rounds between), and the MDS mix as t^2 Montgomery products
-// summed by modular adds.  The round constants and the Montgomery MDS sit
-// in __constant__ memory (the host fills them once per field and width):
-// every thread of a warp reads the same word at the same time, which the
-// constant cache serves as a broadcast.  Bound: integer multiply-adds.  A
-// state costs 8 (3t + t^2) + R_P (3 + t^2) products of ~264 multiply-adds
-// (1,888 products at t = 5, 5,652 at t = 9) against 2 t 32 bytes moved.
-// At t = 9 the state alone is 72 registers and the MDS sums need more, so
-// the MDS rows go through local memory.
+// registers for all rounds, on the sparse tables of
+// ops/poseidon_constants.py sparse_params (the Poseidon paper's
+// appendix B): the partial rounds' constants on lanes 1.. are moved
+// forward through M, so a partial round adds one scalar to lane 0, and
+// each partial round's matrix is factored as S_k diag(1, D_k), the diag
+// moved into the round before, so a partial round's mix is a row for
+// lane 0 (t products) and s_i + c_i x0 on the other lanes (one product
+// each, in place).  Full rounds keep the dense matrix (the first half's
+// last one is diag(1, D_0) M).  Every row's products are summed
+// unreduced and take one REDC (field.cuh pasta_redc, shaped for the two
+// Pasta primes), then the conditional subtracts its bound needs (two at
+// t = 5, three at t = 9); the S-box's products are field.cuh's
+// fe_mul_pasta.  A state costs 8 (3t + t^2) + R_P (3 + 2t - 1) products:
+// 992 at t = 5, 2,004 at t = 9, against the dense order's 1,888 and
+// 5,652.  Bound: integer multiply-adds, against 2 t 32 bytes moved.  The
+// tables sit in shared memory (below).  The full rounds' new state is gathered in
+// local memory (their row loop stays rolled); the partial rounds need
+// no second copy of the state.
 //
 // perm_spread_kernel, for small B (a sumcheck round's single sponge state,
 // the top levels of a Merkle tree): there perm_kernel is bound by the
-// latency of one thread's 5,652 dependent products.  Here a block owns
+// latency of one thread's 2,004 dependent products.  Here a block owns
 // one state: thread (i, j), in row group i of G lanes (G = 8 at t = 5,
 // 16 at t = 9; lanes j >= t add zero), holds M[i][j] in registers for all
 // rounds and forms M[i][j] x_j^5 as (M[i][j] x_j) x_j^4, so that M x_j
@@ -33,8 +39,8 @@
 // warp shuffles (log2 G modular adds), which leaves s_i in every lane of
 // the group; lane (i, 0) writes it to shared memory, and one barrier a
 // round (double-buffered) hands the state to the next round.  So a round's
-// dependency chain is three products deep, 195 at t = 9 (65 rounds)
-// instead of 5,652, or four where the thread runs its products one after
+// dependency chain is three products deep, 195 at t = 9 (65 rounds),
+// or four where the thread runs its products one after
 // another, plus log2 G shuffled adds and a barrier.  The
 // threads of a warp read different round constants, which the constant
 // cache would serialise, so this kernel copies its field's and width's
@@ -52,96 +58,142 @@ template <int T>
 struct width;
 template <>
 struct width<5> {
-    static constexpr int R = R_F + 56;
+    static constexpr int R_P = 56, R = R_F + R_P;
     static constexpr int G = 8;
 };
 template <>
 struct width<9> {
-    static constexpr int R = R_F + 57;
+    static constexpr int R_P = 57, R = R_F + R_P;
     static constexpr int G = 16;
 };
 
-// [field][round][lane][limb] and [field][row][column][limb], Montgomery:
-// the constant banks perm_kernel reads, and a global copy of the same
-// tables for perm_spread_kernel
-static __constant__ u32 RC5[2][width<5>::R * 5 * 8];
-static __constant__ u32 MDS5[2][5 * 5 * 8];
-static __constant__ u32 RC9[2][width<9>::R * 9 * 8];
-static __constant__ u32 MDS9[2][9 * 9 * 8];
+// perm_spread_kernel's tables, [field][round][lane][limb] and
+// [field][row][column][limb], Montgomery, in global memory
 static __device__ u32 RC5G[2][width<5>::R * 5 * 8];
 static __device__ u32 MDS5G[2][5 * 5 * 8];
 static __device__ u32 RC9G[2][width<9>::R * 9 * 8];
 static __device__ u32 MDS9G[2][9 * 9 * 8];
 
-template <int F, int T>
-__device__ __forceinline__ fe rc_fe(int r, int l) {
-    fe x;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-        if constexpr (T == 5)
-            x.v[k] = RC5[F][(r * T + l) * 8 + k];
-        else
-            x.v[k] = RC9[F][(r * T + l) * 8 + k];
-    }
-    return x;
+// perm_kernel's tables (ops/poseidon_constants.py sparse_params), elements
+// of 8 words, Montgomery: the full rounds' constants; the matrix of the
+// first half's last full round, diag(1, D_0) M; M; and for each partial
+// round its lane-0 constant, its lane-0 row (t) and its column (t - 1).
+// 650 elements (20,800 bytes) at t = 5, 1,260 (40,320 bytes) at t = 9.
+template <int T>
+struct alignas(16) sparse_tables {
+    static constexpr int FULL_RC = 0, PRE = R_F * T, MDS = PRE + T * T,
+                         PART = MDS + T * T, N = PART + width<T>::R_P * 2 * T;
+    u32 w[N * 8];
+};
+
+// perm_kernel stages its field's tables in shared memory once a block
+// (20,800 bytes at t = 5, 40,320 at t = 9), from where all the threads
+// of a warp that read one word get it in one broadcast: the tables of
+// both fields and widths (122 KB) do not fit the 64 KB constant bank.
+// The global copies, one per field and width:
+static __device__ sparse_tables<5> SP5G[2];
+static __device__ sparse_tables<9> SP9G[2];
+
+template <int T>
+__device__ __forceinline__ const sparse_tables<T>& global_tables(int f) {
+    if constexpr (T == 5)
+        return SP5G[f];
+    else
+        return SP9G[f];
 }
 
-template <int F, int T>
-__device__ __forceinline__ fe mds_fe(int i, int j) {
+// element e of a table in shared memory; warp-uniform, so one word
+// serves the warp
+__device__ __forceinline__ fe tab_fe(const u32* tb, int e) {
     fe x;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-        if constexpr (T == 5)
-            x.v[k] = MDS5[F][(i * T + j) * 8 + k];
-        else
-            x.v[k] = MDS9[F][(i * T + j) * 8 + k];
-    }
+    for (int k = 0; k < 8; ++k) x.v[k] = tb[e * 8 + k];
     return x;
 }
 
 template <int F>
 __device__ __forceinline__ fe pow5(const fe& x) {
-    const fe x2 = fe_mul<F>(x, x);
-    const fe x4 = fe_mul<F>(x2, x2);
-    return fe_mul<F>(x4, x);
+    const fe x2 = fe_mul_pasta<F>(x, x);
+    const fe x4 = fe_mul_pasta<F>(x2, x2);
+    return fe_mul_pasta<F>(x4, x);
 }
 
-// s <- M s.  The row loop stays rolled (one copy of t products in the
-// code, not t^2), so the new state is gathered in `o` in local memory.
+// s <- A s for a dense matrix A (element e0 on): each row's t products
+// summed unreduced, one REDC a row.  The row loop stays rolled (one copy
+// of t products in the code, not t^2), so the new state is gathered in
+// `o` in local memory.
 template <int F, int T>
-__device__ __forceinline__ void mds_mix(fe (&s)[T]) {
+__device__ __forceinline__ void dense_mix(fe (&s)[T], const u32* tb,
+                                          int e0) {
     fe o[T];
 #pragma unroll 1
     for (int i = 0; i < T; ++i) {
-        fe acc = fe_mul<F>(s[0], mds_fe<F, T>(i, 0));
+        u32 w[17];
+        wide_mul(w, s[0].v, tab_fe(tb, e0 + i * T).v);
 #pragma unroll
         for (int j = 1; j < T; ++j)
-            acc = fe_add<F>(acc, fe_mul<F>(s[j], mds_fe<F, T>(i, j)));
-        o[i] = acc;
+            wide_mac(w, s[j].v, tab_fe(tb, e0 + i * T + j).v);
+        o[i] = pasta_redc<F, T / 4 + 1>(w);
     }
 #pragma unroll
     for (int i = 0; i < T; ++i) s[i] = o[i];
 }
 
+// The partial rounds, sparse: x0 = (s_0 + c)^5; s_0 <- row . (x0, s_1..);
+// s_i <- s_i + col_i x0 for i >= 1, in place (s_i 2^256 joins the product
+// before its REDC).
 template <int F, int T>
-__global__ void __launch_bounds__(128)
+__device__ __forceinline__ void partial_rounds(fe (&s)[T], const u32* tb) {
+    using tabs = sparse_tables<T>;
+#pragma unroll 1
+    for (int k = 0; k < width<T>::R_P; ++k) {
+        const int e = tabs::PART + k * 2 * T;
+        s[0] = pow5<F>(fe_add<F>(s[0], tab_fe(tb, e)));
+        u32 w[17];
+        wide_mul(w, s[0].v, tab_fe(tb, e + 1).v);
+#pragma unroll
+        for (int j = 1; j < T; ++j)
+            wide_mac(w, s[j].v, tab_fe(tb, e + 1 + j).v);
+        const fe s0 = pasta_redc<F, T / 4 + 1>(w);
+#pragma unroll
+        for (int i = 1; i < T; ++i) {
+            wide_mul(w, s[0].v, tab_fe(tb, e + T + i).v);
+            wide_add_hi(w, s[i].v);
+            s[i] = pasta_redc<F, 2>(w);
+        }
+        s[0] = s0;
+    }
+}
+
+// 128 threads a block and at least one block resident an SM: with that
+// minimum ptxas gives each instance more registers than without it, and
+// none spills (chip_smoke.py's build phase prints its report); asking
+// for more resident blocks spilled and ran slower on an NVIDIA H100 80GB
+// HBM3 at 700 W (PERF.md): each thread's dependent carry chains, not the
+// number of resident warps, set the pace.
+template <int F, int T>
+__global__ void __launch_bounds__(128, 1)
 perm_kernel(const u32* __restrict__ in, u32* __restrict__ out, int B) {
+    using tabs = sparse_tables<T>;
+    __shared__ tabs sh;
+    const uint4* g = reinterpret_cast<const uint4*>(global_tables<T>(F).w);
+    uint4* d = reinterpret_cast<uint4*>(sh.w);
+    for (int k = threadIdx.x; k < tabs::N * 2; k += blockDim.x) d[k] = g[k];
+    __syncthreads();
+    const u32* tb = sh.w;
     const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= (size_t)B) return;
     fe s[T];
 #pragma unroll
     for (int l = 0; l < T; ++l) s[l] = load_fe(in, B, l, i);
-    constexpr int R = width<T>::R;
 #pragma unroll 1
-    for (int r = 0; r < R; ++r) {
+    for (int r = 0; r < R_F; ++r) {
+        if (r == R_F / 2) partial_rounds<F, T>(s, tb);
 #pragma unroll
-        for (int l = 0; l < T; ++l) s[l] = fe_add<F>(s[l], rc_fe<F, T>(r, l));
-        s[0] = pow5<F>(s[0]);
-        if (r < R_F / 2 || r >= R - R_F / 2) {   // a full round
-#pragma unroll
-            for (int l = 1; l < T; ++l) s[l] = pow5<F>(s[l]);
-        }
-        mds_mix<F, T>(s);
+        for (int l = 0; l < T; ++l)
+            s[l] = pow5<F>(
+                fe_add<F>(s[l], tab_fe(tb, tabs::FULL_RC + r * T + l)));
+        dense_mix<F, T>(s, tb, r == R_F / 2 - 1 ? tabs::PRE : tabs::MDS);
     }
 #pragma unroll
     for (int l = 0; l < T; ++l) store_fe(out, B, l, i, s[l]);
@@ -223,24 +275,24 @@ static cudaError_t copy_row(S& sym, const void* src, int field) {
     return cudaMemcpyToSymbol(sym, src, sizeof(sym[0]), field * sizeof(sym[0]));
 }
 
-// Copies one field's round constants ((R_F + R_P) * t * 8 words) and MDS
-// (t * t * 8 words), Montgomery, from host memory into the constant banks
-// and their global copies.
+// Copies one field's tables, Montgomery, from host memory: for
+// perm_spread_kernel the round constants ((R_F + R_P) * t * 8 words) and
+// the MDS (t * t * 8 words), for perm_kernel the sparse tables
+// (sparse_tables<t>, in its order: ops/poseidon_device.py sparse_table).
 extern "C" int reef_poseidon_set_consts(int field, int t, const void* rc,
-                                        const void* mds) {
+                                        const void* mds,
+                                        const void* sparse) {
     if (field < 0 || field > 1 || (t != 5 && t != 9))
         return (int)cudaErrorInvalidValue;
-    cudaError_t err[4];
+    cudaError_t err[3] = {cudaSuccess, cudaSuccess, cudaSuccess};
     if (t == 5) {
-        err[0] = copy_row(RC5, rc, field);
-        err[1] = copy_row(MDS5, mds, field);
-        err[2] = copy_row(RC5G, rc, field);
-        err[3] = copy_row(MDS5G, mds, field);
+        err[0] = copy_row(RC5G, rc, field);
+        err[1] = copy_row(MDS5G, mds, field);
+        err[2] = copy_row(SP5G, sparse, field);
     } else {
-        err[0] = copy_row(RC9, rc, field);
-        err[1] = copy_row(MDS9, mds, field);
-        err[2] = copy_row(RC9G, rc, field);
-        err[3] = copy_row(MDS9G, mds, field);
+        err[0] = copy_row(RC9G, rc, field);
+        err[1] = copy_row(MDS9G, mds, field);
+        err[2] = copy_row(SP9G, sparse, field);
     }
     for (cudaError_t e : err)
         if (e != cudaSuccess) return (int)e;

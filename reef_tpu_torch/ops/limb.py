@@ -215,17 +215,19 @@ def mul(f: LimbField, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _redc_inplace(f, cols)
 
 
-def redc_cols(f: LimbField, cols: torch.Tensor) -> torch.Tensor:
+def redc_cols(f: LimbField, cols: torch.Tensor,
+              subtracts: int = 2) -> torch.Tensor:
     """Montgomery-reduce (32, ...) non-negative column sums to a canonical
     (16, ...) element: 16 REDC rounds with n0inv, a carry pass and two
-    conditional subtracts, as the JAX package's `limb.redc_cols`.
+    conditional subtracts, as the JAX package's `limb.redc_cols` (or as
+    many as `subtracts` says, where a caller's bound needs another count).
 
     The reference's contract: columns below 2^31 whose value is below
     ~5p^2, which the MXU Poseidon's byte matmul produces (ops/poseidon_mxu).
     Such a value can exceed p*R, so the REDC leaves up to ~2.3p and takes
     two subtracts.  Exact here also for a product's schoolbook columns
     (below ~2^40): the columns are int64."""
-    return _redc_inplace(f, cols.clone(), subtracts=2)
+    return _redc_inplace(f, cols.clone(), subtracts)
 
 
 def _redc_inplace(f: LimbField, cols: torch.Tensor,

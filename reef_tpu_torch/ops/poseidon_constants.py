@@ -16,7 +16,9 @@ Round numbers: full rounds R_F = 8 (neptune fixes this), partial rounds per
 the paper's security analysis for alpha=5, 255-bit fields, M=128 — tabulated
 below per width t.  The permutation is the vanilla (unoptimized) evaluation
 order: add-round-constant -> S-box -> MDS each round; partial rounds S-box
-only lane 0.  Constants are cached per (field, t).
+only lane 0.  Constants are cached per (field, t).  `sparse_params` gives
+the constants of the same permutation with sparse partial rounds, the
+order K5's thread-per-state launch runs.
 """
 
 from __future__ import annotations
@@ -189,6 +191,76 @@ def poseidon_params(p: int, t: int):
                                  "from the pinned digest")
         _write_rc_cache(p, t, rc)
     return rc, mds
+
+
+def _matvec(p: int, m, v):
+    return [sum(a * b for a, b in zip(row, v)) % p for row in m]
+
+
+def _inverse(p: int, m):
+    """The inverse of the square matrix m mod p (Gauss-Jordan)."""
+    n = len(m)
+    a = [list(row) + [int(i == j) for j in range(n)]
+         for i, row in enumerate(m)]
+    for c in range(n):
+        piv = next(r for r in range(c, n) if a[r][c] % p)
+        a[c], a[piv] = a[piv], a[c]
+        inv = pow(a[c][c], -1, p)
+        a[c] = [x * inv % p for x in a[c]]
+        for r in range(n):
+            if r != c and a[r][c]:
+                f = a[r][c]
+                a[r] = [(x - f * y) % p for x, y in zip(a[r], a[c])]
+    return [row[n:] for row in a]
+
+
+@functools.lru_cache(maxsize=None)
+def sparse_params(p: int, t: int):
+    """The permutation's constants for sparse partial rounds (the Poseidon
+    paper's appendix B; neptune's optimised constants), python ints:
+
+      full_rc   (R_F, t): the full rounds' constant vectors; the first of
+                the second half also carries what the partial rounds'
+                lanes 1.. handed on
+      part_rc   (R_P,): the scalar each partial round adds to lane 0
+      pre       (t, t): the matrix of the first half's last full round,
+                diag(1, D_0) M
+      mds       (t, t): M, the matrix of every other full round
+      rows      (R_P, t): partial round k's new lane 0 is rows[k] . s
+      cols      (R_P, t - 1): then lane i >= 1 is s_i + cols[k][i-1] x0,
+                with x0 lane 0 after the S-box
+
+    Derivation.  A partial round's constant on lanes 1.. passes the lane-0
+    S-box unchanged, so M moves it into the next round's constant; after
+    the last partial round what is left joins the next full round's.
+    Then, from the last partial round back, each round's matrix A (M, or
+    diag(1, D) M of the round after it) is factored A = S diag(1, D) with
+    S = [[a, b^T D^-1], [c, I]] for A = [[a, b^T], [c, D]]; diag(1, D)
+    commutes with everything a partial round does to lane 0, so it moves
+    into the round before.  The Cauchy MDS makes every D invertible.  The
+    result is the vanilla permutation's, exactly."""
+    rc, mds = poseidon_params(p, t)
+    r_p, half = PARTIAL_ROUNDS[t], FULL_ROUNDS // 2
+    rounds = [list(rc[r * t:(r + 1) * t]) for r in range(FULL_ROUNDS + r_p)]
+    part_rc, moved = [], [0] * t
+    for c in rounds[half:half + r_p]:
+        c = [(x + y) % p for x, y in zip(c, moved)]
+        part_rc.append(c[0])
+        moved = _matvec(p, mds, [0] + c[1:])
+    full_rc = rounds[:half] + rounds[half + r_p:]
+    full_rc[half] = [(x + y) % p for x, y in zip(full_rc[half], moved)]
+    a_mat, rows, cols = mds, [None] * r_p, [None] * r_p
+    for k in reversed(range(r_p)):
+        d = [row[1:] for row in a_mat[1:]]
+        d_inv = _inverse(p, d)
+        w = [sum(a_mat[0][1 + i] * d_inv[i][j] for i in range(t - 1)) % p
+             for j in range(t - 1)]
+        rows[k] = (a_mat[0][0], *w)
+        cols[k] = tuple(row[0] for row in a_mat[1:])
+        # diag(1, D) M: the matrix of the round before
+        a_mat = [mds[0]] + [_matvec(p, list(zip(*mds[1:])), dr) for dr in d]
+    return (tuple(map(tuple, full_rc)), tuple(part_rc),
+            tuple(map(tuple, a_mat)), mds, tuple(rows), tuple(cols))
 
 
 _NATIVE_PERM_CACHE: dict = {}

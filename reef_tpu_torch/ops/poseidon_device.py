@@ -19,7 +19,7 @@ Fiat-Shamir sponge (backend/costs.py NL_RATE).
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,13 +27,14 @@ import torch
 from . import limb, poseidon_kernel
 from .limb import LimbField
 from .poseidon import IOPattern
-from .poseidon_constants import FULL_ROUNDS, PARTIAL_ROUNDS, poseidon_params
+from .poseidon_constants import (FULL_ROUNDS, PARTIAL_ROUNDS,
+                                  poseidon_params, sparse_params)
 
 
 @functools.lru_cache(maxsize=None)
 def _device_consts(lf: LimbField, t: int) -> Tuple[np.ndarray, np.ndarray]:
     """Round constants (n_rounds, t, 8) and MDS (t, t, 8), Montgomery, as
-    uint32 words of 32-bit limbs (the kernels' constant tables)."""
+    uint32 words of 32-bit limbs (the block-per-state launch's tables)."""
     rc, mds = poseidon_params(lf.p_int, t)
     n_rounds = FULL_ROUNDS + PARTIAL_ROUNDS[t]
     rc_w = limb.mont_words(lf, rc).reshape(n_rounds, t, limb.N32)
@@ -41,38 +42,90 @@ def _device_consts(lf: LimbField, t: int) -> Tuple[np.ndarray, np.ndarray]:
     return rc_w, mds_w.reshape(t, t, limb.N32)
 
 
-_PLAIN: Dict[Tuple[LimbField, int, str], Tuple[torch.Tensor, ...]] = {}
+@functools.lru_cache(maxsize=None)
+def _sparse_consts(lf: LimbField, t: int) -> Dict[str, np.ndarray]:
+    """`sparse_params` as Montgomery uint32 words (..., 8): full_rc (R_F,
+    t), pre and mds (t, t), and per partial round its lane-0 constant,
+    its row and its column as one (R_P, 2 t) block `part` (constant,
+    row[0..t), cols[0..t-1)): the thread-per-state launch's tables."""
+    full_rc, part_rc, pre, mds, rows, cols = sparse_params(lf.p_int, t)
+
+    def words(xs, *shape):
+        flat = [x for row in xs for x in row]
+        return limb.mont_words(lf, flat).reshape(*shape, limb.N32)
+    part = [(c, *r, *k) for c, r, k in zip(part_rc, rows, cols)]
+    return {"full_rc": words(full_rc, FULL_ROUNDS, t),
+            "pre": words(pre, t, t), "mds": words(mds, t, t),
+            "part": words(part, PARTIAL_ROUNDS[t], 2 * t)}
 
 
-def _plain_consts(lf: LimbField, t: int, device: torch.device):
-    """(rc (n_rounds, 16, t, 1), mds (16, t, t, 1)) int64 on `device`."""
-    key = (lf, t, str(device))
+def sparse_table(lf: LimbField, t: int) -> np.ndarray:
+    """The thread-per-state launch's tables as one flat uint32 array in
+    the order of csrc/poseidon.cu's `sparse_tables`: full_rc, pre, mds,
+    part."""
+    c = _sparse_consts(lf, t)
+    return np.concatenate([c[k].reshape(-1) for k in
+                           ("full_rc", "pre", "mds", "part")])
+
+
+_PLAIN: Dict[Tuple[LimbField, int, str, bool], Tuple[torch.Tensor, ...]] = {}
+
+
+def _plain16(words: np.ndarray, device) -> torch.Tensor:
+    """(..., 8) uint32 words -> (16, ...) int64 plain limbs on device."""
+    w = torch.from_numpy(words.view(np.int32).copy()).to(device)
+    return limb.split32(w.movedim(-1, 0))
+
+
+def _plain_consts(lf: LimbField, t: int, device: torch.device,
+                  sparse: bool = False):
+    """Dense: (rc (n_rounds, 16, t, 1), mds (16, t, t, 1)); sparse:
+    (full_rc (R_F, 16, t, 1), pre, mds (16, t, t, 1), part_rc (R_P, 16, 1,
+    1), rows (R_P, 16, 1, t, 1), cols (R_P, 16, t - 1, 1, 1)); int64 on
+    `device`."""
+    key = (lf, t, str(device), sparse)
     if key not in _PLAIN:
-        rc_w, mds_w = _device_consts(lf, t)
-        rc = torch.from_numpy(rc_w.view(np.int32).copy()).to(device)
-        rc = limb.split32(rc.permute(2, 0, 1)).permute(1, 0, 2)[..., None]
-        mds = torch.from_numpy(mds_w.view(np.int32).copy()).to(device)
-        mds = limb.split32(mds.permute(2, 0, 1))[..., None]
-        _PLAIN[key] = (rc.contiguous(), mds.contiguous())
+        if not sparse:
+            rc_w, mds_w = _device_consts(lf, t)
+            _PLAIN[key] = (_plain16(rc_w, device).movedim(0, 1)[..., None],
+                           _plain16(mds_w, device)[..., None])
+        else:
+            c = _sparse_consts(lf, t)
+            part = _plain16(c["part"], device).movedim(0, 1)  # (R_P, 16, 2t)
+            _PLAIN[key] = (
+                _plain16(c["full_rc"], device).movedim(0, 1)[..., None],
+                _plain16(c["pre"], device)[..., None],
+                _plain16(c["mds"], device)[..., None],
+                part[:, :, :1, None], part[:, :, None, 1:t + 1, None],
+                part[:, :, t + 1:, None, None])
+        _PLAIN[key] = tuple(x.contiguous() for x in _PLAIN[key])
     return _PLAIN[key]
 
 
-def _mds_plain(lf: LimbField, s: torch.Tensor,
-               mds: torch.Tensor) -> torch.Tensor:
-    """out_i = sum_j mds[i][j] s_j on (16, t, B) int64: the t products of a
-    row summed as 32 schoolbook columns (each below 2^40), then one REDC."""
+def row_subtracts(terms: int, high: bool = False) -> int:
+    """Conditional subtracts after the REDC of a sum of `terms` products
+    of values below p, plus a value below p times R where `high`.  As
+    p < 2^254 (1 + 2^-125) = R (1 + 2^-125) / 4, that sum is below
+    (terms / 4 + high) (1 + 2^-125) p R; the REDC adds less than p R and
+    divides by R, which leaves it below (terms / 4 + high + 1 + 2^-120) p.
+    (csrc/poseidon.cu's perm_kernel takes the same counts.)"""
+    return terms // 4 + 1 + high
+
+
+def _lazy_rows(lf: LimbField, s: torch.Tensor, m: torch.Tensor,
+               high: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """out_i = sum_j m[i][j] s_j (+ high_i R) on (16, t, B) int64 with m
+    (16, r, t, 1): a row's products summed as 32 schoolbook columns (each
+    below 2^40, high in the upper 16), then one REDC and
+    `row_subtracts` conditional subtracts -> (16, r, B)."""
     t = s.shape[1]
-    cols = torch.zeros((2 * limb.N,) + tuple(s.shape[1:]), dtype=torch.int64,
-                       device=s.device)
+    cols = torch.zeros((2 * limb.N, m.shape[1]) + tuple(s.shape[2:]),
+                       dtype=torch.int64, device=s.device)
     for a in range(limb.N):
-        cols[a:a + limb.N] += (mds * s[a][None, None]).sum(dim=2)
-    out = limb.redc_cols(lf, cols)
-    # a sum of t products of values below p is below t p^2, so the REDC
-    # result is below (t p / 2^256 + 1) p < (t / 4 + 1.01) p: redc_cols'
-    # two subtracts leave it below (t / 4 - 0.99) p
-    for _ in range(t // 4 - 1):
-        out = limb.cond_sub_p(lf, out)
-    return out
+        cols[a:a + limb.N] += (m * s[a][None, None]).sum(dim=2)
+    if high is not None:
+        cols[limb.N:] += high
+    return limb.redc_cols(lf, cols, row_subtracts(t, high is not None))
 
 
 def _spread_round(lf: LimbField, s: torch.Tensor, rc: torch.Tensor,
@@ -111,7 +164,30 @@ def _permute16(lf: LimbField, s: torch.Tensor,
             s = limb.pow5(lf, s)
         else:
             s = torch.cat([limb.pow5(lf, s[:, :1]), s[:, 1:]], dim=1)
-        s = _mds_plain(lf, s, mds)
+        s = _lazy_rows(lf, s, mds)
+    return s
+
+
+def _permute16_sparse(lf: LimbField, s: torch.Tensor) -> torch.Tensor:
+    """The permutation on a (16, t, B) int64 batch as csrc/poseidon.cu's
+    perm_kernel computes it, on `sparse_params`' tables: each full round
+    one lazy row a lane (`_lazy_rows`); each partial round the lane-0
+    S-box, the lane-0 row, then s_i + c_i x0 on lanes i >= 1, each one
+    product and s_i R summed before one REDC."""
+    t = s.shape[1]
+    full_rc, pre, mds, part_rc, rows, cols = _plain_consts(lf, t, s.device,
+                                                           sparse=True)
+    half = FULL_ROUNDS // 2
+    for r in range(FULL_ROUNDS):
+        if r == half:
+            for k in range(PARTIAL_ROUNDS[t]):
+                x0 = limb.pow5(lf, limb.add(lf, s[:, :1], part_rc[k]))
+                s = torch.cat([x0, s[:, 1:]], dim=1)
+                s = torch.cat([_lazy_rows(lf, s, rows[k]),
+                               _lazy_rows(lf, x0, cols[k], high=s[:, 1:])],
+                              dim=1)
+        s = limb.pow5(lf, limb.add(lf, s, full_rc[r]))
+        s = _lazy_rows(lf, s, pre if r == half - 1 else mds)
     return s
 
 
@@ -127,13 +203,14 @@ def _check_state(state: torch.Tensor) -> int:
     return t
 
 
-def permute_plain(lf: LimbField, state: torch.Tensor,
-                  spread: bool = False) -> torch.Tensor:
+def permute_plain(lf: LimbField, state: torch.Tensor, spread: bool = False,
+                  sparse: bool = False) -> torch.Tensor:
     """K5's plain version: (t, 8, B) int32 -> (t, 8, B) int32, any device;
-    `spread` repeats the arithmetic of K5's SPREAD launch (the same
-    values, reached another way)."""
+    `spread` repeats the arithmetic of K5's SPREAD launch, `sparse` that
+    of its THREAD launch (the same values, reached other ways)."""
     _check_state(state)
-    s = _permute16(lf, limb.split32(state.transpose(0, 1)), spread)
+    s = limb.split32(state.transpose(0, 1))
+    s = _permute16_sparse(lf, s) if sparse else _permute16(lf, s, spread)
     return limb.join16(s).transpose(0, 1).contiguous()
 
 

@@ -5,15 +5,20 @@ its `permute`).  `launch` permutes each state of a (t, 8, B) int32 batch on
 the card (t = 5 or 9, Montgomery, the layout of ops.poseidon_device),
 whatever B, and counts the launch.  ops.poseidon_device.permute is the
 wrapper that callers use: it sends CUDA tensors here and runs the plain
-version on CPU tensors.  The kernel's round constants and MDS are copied
-into its constant banks (and their global copies) once per process,
-field, width and card.  Every launch adds one to the `poseidon` count, a
-SPREAD launch one to `poseidon_spread` as well.
+version on CPU tensors.  The kernel's tables are copied into its global
+arrays once per process, field, width and card: the dense round
+constants and MDS for SPREAD, the sparse tables
+(ops.poseidon_constants.sparse_params) for THREAD; each block copies
+its field's tables into shared memory.
+Every launch adds one to the `poseidon` count, a SPREAD launch one to
+`poseidon_spread` as well.
 
 K5 has two launches: THREAD gives each state one thread (the Merkle
-leaves, the flagship step), SPREAD gives each state a block of t row
-groups (a sumcheck round's single sponge state, the top levels of a
-Merkle tree).  `route` picks one by batch size.
+leaves, the flagship step) and runs sparse partial rounds with one REDC
+a matrix row (`poseidon_device.permute_plain(..., sparse=True)` is its
+plain twin); SPREAD gives each state a block of t row groups (a
+sumcheck round's single sponge state, the top levels of a Merkle tree)
+and runs the dense rounds (`spread=True`).  `route` picks one by batch size.
 """
 
 from __future__ import annotations
@@ -28,10 +33,10 @@ from .limb import LimbField
 THREAD, SPREAD = 0, 1
 # the least batch that goes to THREAD: below it SPREAD is faster on an
 # H100 at both widths (the sweep of chip_smoke.py's poseidon phase)
-THREAD_MIN_B = 4096
+THREAD_MIN_B = 1024
 
 # (card, field id, t) whose constants are set: cudaMemcpyToSymbol fills
-# the constant banks of the current device only
+# the kernel's arrays on the current device only
 _CONSTS_SET: Set[Tuple[torch.device, int, int]] = set()
 
 
@@ -45,11 +50,13 @@ def _set_consts(lf: LimbField, t: int, device: torch.device) -> None:
     key = (device, lf.field_id, t)
     if key in _CONSTS_SET:
         return
-    from .poseidon_device import _device_consts
+    from .poseidon_device import _device_consts, sparse_table
     rc, mds = _device_consts(lf, t)
+    sparse = sparse_table(lf, t)
     with torch.cuda.device(device):
         err = cudabuild.library("poseidon").reef_poseidon_set_consts(
-            lf.field_id, t, rc.ctypes.data, mds.ctypes.data)
+            lf.field_id, t, rc.ctypes.data, mds.ctypes.data,
+            sparse.ctypes.data)
     cudabuild.check(err, "reef_poseidon_set_consts")
     _CONSTS_SET.add(key)
 

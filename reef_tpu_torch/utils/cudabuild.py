@@ -45,7 +45,7 @@ LIBS = {
     "msm_tree": ("msm_tree.cu", {"reef_tree_levels": [P, P, I, I, I, I, I,
                                                       P]}),
     "poseidon": ("poseidon.cu", {
-        "reef_poseidon_set_consts": [I, I, P, P],
+        "reef_poseidon_set_consts": [I, I, P, P, P],
         "reef_poseidon": [P, P, I, I, I, I, P]}),
     "sumcheck": ("sumcheck.cu", {
         "reef_sc_coeffs": [P, P, P, P, L, L, L, I, I, P, P, P, P, P, I, I,

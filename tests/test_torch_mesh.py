@@ -377,7 +377,7 @@ def test_poseidon_constants_set_once_per_card(monkeypatch, stand_in_card):
     sets = []
 
     class Lib:
-        def reef_poseidon_set_consts(self, field, t, rc, mds):
+        def reef_poseidon_set_consts(self, field, t, rc, mds, sparse):
             sets.append((stand_in_card.current, field, t))
             return 0
 

@@ -1,34 +1,40 @@
 #!/usr/bin/env python3
-"""Time one chunk of the device MSM, its kernels and K6's coefficient
-rounds on one CUDA card.
+"""Time a checkout of the port on one CUDA card, phase by phase.
 
-    python3 tools/msm_chunk_ab.py [--repo DIR] [--rounds N]
+    python3 tools/ab.py [--repo DIR] [--phases msm k5] [--rounds N]
 
 Imports reef_tpu_torch from DIR (default: the checkout that holds this
 script), so that one machine can time two checkouts of the port in turns
-(A B B A) on the same card and host.  Builds the kernels it runs (K1
-csrc/padd.cu, K2 csrc/msm_tree.cu, K6 csrc/sumcheck.cu) into DIR's build
-directory.
+(A B B A) on the same card and host.  Builds the kernels each phase runs
+into DIR's build directory.  Prints one JSON line a phase, each with the
+card's name and power limit (nvidia-smi), the phase's build seconds and
+digests of its outputs, which must agree between checkouts.
 
+msm: one chunk of the device MSM, its kernels and K6's coefficient
+rounds (K1 csrc/padd.cu, K2 csrc/msm_tree.cu, K6 csrc/sumcheck.cu).
 The chunk is `ec/msm_v3.py` `chunk_prefixes` at cap 16384 on Pallas, all
 32 windows, as the commit MSM runs it: sort, counts, gather, K2, the
 Fenwick gather and K1 reduce.  Its glue is some forty torch launches, so
 its time follows the host as well as the card; `host_launch_us`, the mean
 wall time of one one-element torch add on the card, says how fast the
-host issues launches.
+host issues launches.  The line holds the chunk's ms a call for each
+round (CUDA events over 5 calls), the host's wall ms to issue one (5
+calls, no wait), K2's ms a call (`tree_levels`, 10 calls) and the host
+probe.  Then the device time (`device_ms`: the launches queued behind a
+sleep on the card, so that the host's issue rate does not show) of the
+MSM's two K1 reduces as the checkout runs them (the Fenwick levels of a
+chunk with its acc add, and the digit halving: one `padd_reduce` launch
+each where the checkout has it, else one K1 launch a level), of each
+such level launch alone, and of K6's coefficient pass at every round of
+a 2^20-entry sumcheck (half = 2^19 .. 1, with a t = 9 sponge state).
 
-Prints one JSON line: the card's name and power limit (nvidia-smi), the
-chunk's ms a call for each round (CUDA events over 5 calls), the host's
-wall ms to issue one (5 calls, no wait), K2's ms a call (`tree_levels`,
-10 calls), the host probe, and a digest of the chunk's output, which
-must agree between checkouts.  Then the device time (`device_ms`: the
-launches queued behind a sleep on the card, so that the host's issue
-rate does not show) of the MSM's two K1 reduces as the checkout runs
-them (the Fenwick levels of a chunk with its acc add, and the digit
-halving: one `padd_reduce` launch each where the checkout has it, else
-one K1 launch a level), of each such level launch alone, and of K6's
-coefficient pass at every round of a 2^20-entry sumcheck (half = 2^19
-.. 1, with a t = 9 sponge state), with digests of their outputs.
+k5: K5's thread-per-state launch (csrc/poseidon.cu; K6 for the step),
+the flagship step and the device Merkle build.  The line holds the ms a
+launch of K5's THREAD launch (CUDA events) at (5, 8, 2^19) and
+(9, 8, 2^19) on F_q and at (5, 8, 2^14), the batch of the reference's
+permutations/s line (bench.py bench_poseidon); the flagship
+`device_step` at B = half = 2^19; and the wall seconds of two
+`build_tree_device` runs over the 1 MB DNA document (2^19 leaves).
 """
 
 from __future__ import annotations
@@ -37,15 +43,16 @@ import argparse
 import hashlib
 import json
 import os
-import subprocess
 import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
-from chip_smoke import cuda_ms, device_ms  # noqa: E402  (this checkout's)
+# this checkout's
+from chip_smoke import cuda_ms, device_ms, dna_text, nvidia_smi  # noqa: E402
 
 CAP = 16384
+K5_BIG, K5_BENCH = 1 << 19, 1 << 14
 
 
 def digest_of(ts) -> str:
@@ -127,33 +134,19 @@ def kernel_times(torch, ck, basis, acc, dev) -> dict:
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--repo", default=HERE)
-    ap.add_argument("--rounds", type=int, default=3)
-    args = ap.parse_args()
-    repo = os.path.abspath(args.repo)
-    sys.path.insert(0, repo)
-
+def phase_msm(torch, dev, rounds: int) -> dict:
+    """The chunk, K2, K1's reduces and K6's rounds; see the module
+    docstring."""
     import numpy as np
-    import torch
-    if not torch.cuda.is_available():
-        print("msm_chunk_ab: torch sees no CUDA device", file=sys.stderr)
-        return 2
     from reef_tpu_torch.backend.commitment import PedersenGens
     from reef_tpu_torch.ec import msm_v3
     from reef_tpu_torch.ec.msm import pallas_kernels
     from reef_tpu_torch.utils import cudabuild
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     cudabuild.build(["padd", "msm_tree", "sumcheck"])
     build_s = time.perf_counter() - t0
 
-    dev = torch.device("cuda")
     ck = pallas_kernels()
     cv = ck.curve
     gens = PedersenGens(cv, b"msm_chunk_ab", CAP).G
@@ -168,11 +161,11 @@ def main() -> int:
         return msm_v3.chunk_prefixes(ck, basis.arr[0], scb, acc, True)
 
     digest = hashlib.sha256(chunk().cpu().numpy().tobytes()).hexdigest()[:16]
-    chunk_ms = [cuda_ms(torch, chunk, reps=5) for _ in range(args.rounds)]
+    chunk_ms = [cuda_ms(torch, chunk, reps=5) for _ in range(rounds)]
     # the host's own time to issue a chunk: 5 calls with no wait between
     # them (the launch queue holds all of them)
     enqueue_ms = []
-    for _ in range(args.rounds):
+    for _ in range(rounds):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         for _ in range(5):
@@ -198,11 +191,77 @@ def main() -> int:
     host_launch_us = (time.perf_counter() - t1) / 2000 * 1e6
 
     kernels = kernel_times(torch, ck, basis, chunk(), dev)
-    print(json.dumps({"repo": repo, "card": smi, "cap": CAP,
-                      "build_s": build_s, "chunk_ms": chunk_ms,
-                      "enqueue_ms": enqueue_ms,
-                      "tree_ms": tree_ms, "host_launch_us": host_launch_us,
-                      "digest": digest, **kernels}), flush=True)
+    return {"cap": CAP, "build_s": build_s, "chunk_ms": chunk_ms,
+            "enqueue_ms": enqueue_ms, "tree_ms": tree_ms,
+            "host_launch_us": host_launch_us, "digest": digest, **kernels}
+
+
+def k5_states(torch, t: int, B: int, seed: int, dev):
+    from reef_tpu_torch.models.prover_step import random_elems
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return random_elems((t, B), g, dev).permute(1, 0, 2).contiguous()
+
+
+def phase_k5(torch, dev) -> dict:
+    """K5 THREAD, the step and the Merkle build; see the module
+    docstring."""
+    from reef_tpu_torch.backend.merkle import build_tree_device
+    from reef_tpu_torch.backend.table import doc_transform
+    from reef_tpu_torch.models import prover_step as PS
+    from reef_tpu_torch.ops import limb
+    from reef_tpu_torch.ops import poseidon_kernel as PK
+    from reef_tpu_torch.utils import cudabuild
+    t0 = time.perf_counter()
+    built = cudabuild.build(["poseidon", "sumcheck"])
+    out = {"build_s": time.perf_counter() - t0,
+           "ptxas": [ln.strip() for ln in
+                     built["poseidon"]["log"].splitlines()
+                     if "registers" in ln or "spill" in ln
+                     or "Compiling entry" in ln]}
+    lf = limb.FQ
+    digests = []
+    for t, B, reps in ((5, K5_BIG, 5), (9, K5_BIG, 3), (5, K5_BENCH, 20)):
+        X = k5_states(torch, t, B, seed=t * 100 + B.bit_length(), dev=dev)
+        digests.append(PK.launch(lf, X, PK.THREAD))
+        out[f"thread_t{t}_b{B}_ms"] = cuda_ms(
+            torch, lambda: PK.launch(lf, X, PK.THREAD), reps=reps)
+    args = PS.example_args(K5_BIG, K5_BIG, seed=1, device=dev)
+    digests.extend(PS.device_step(*args))
+    out["step_ms"] = cuda_ms(torch, lambda: PS.device_step(*args), reps=5)
+    ab = [ord(c) for c in "ACGT"]
+    udoc = doc_transform(ab, [ord(c) for c in dna_text(1_000_000)])
+    secs, roots = [], []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        roots.append(build_tree_device(udoc, dev))
+        secs.append(time.perf_counter() - t1)
+    out.update(merkle_build_s=secs, digest=digest_of(digests),
+               merkle_root=hex(roots[0])[:18])
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--repo", default=HERE)
+    ap.add_argument("--phases", nargs="+", choices=("msm", "k5"),
+                    default=["msm", "k5"])
+    ap.add_argument("--rounds", type=int, default=3,
+                    help="msm: chunk timings")
+    args = ap.parse_args()
+    repo = os.path.abspath(args.repo)
+    sys.path.insert(0, repo)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("ab: torch sees no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    card = nvidia_smi()
+    for phase in args.phases:
+        res = (phase_msm(torch, dev, args.rounds) if phase == "msm"
+               else phase_k5(torch, dev))
+        print(json.dumps({"repo": repo, "card": card, "phase": phase,
+                          **res}), flush=True)
     return 0
 
 
