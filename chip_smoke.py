@@ -27,10 +27,13 @@ script exits non-zero and prints no result:
           shard's cap (8192 on Pallas on eight shards), all 32 windows;
           exact on every node, spot-checked on affine points against the
           python curve at 16384; the time of each level's launch
-  msm     msm_device_v3 at n = 2^16 on Pallas and Vesta against the native
-          host MSM, msm_device_v3_rows at R = 4, n = 4096; exact.  Times
-          with CUDA events, and one chunk of the plain pipeline on the
-          card (a check of the algorithm, no yardstick of speed)
+  msm     msm_device_v3 at n = 2^14 .. 2^18 on Pallas and Vesta (the
+          sizes the e2e and the workload suite commit) against the native
+          host MSM, msm_device_v3_rows at R = 4, n = 4096; exact.  The
+          window sums timed with CUDA events, the whole call (with its
+          copy back) and the native host MSM with host timers, and the
+          basis upload; one chunk of the plain pipeline on the card (a
+          check of the algorithm, no yardstick of speed)
   poseidon  K5 (csrc/poseidon.cu) at t = 5, B = 2^19 (the 1 MB document's
           Merkle leaves) and t = 9, B = 2^19 against its dense plain
           version on a 4,096-state sample plus the last state; both of
@@ -108,10 +111,29 @@ script exits non-zero and prints no result:
           prove and verify, sharded_msm and the sharded sumcheck rounds
           must each have run, and K1, K2, K5 and K6 must have launched in
           it (its counts, set to 0 just before it, are `mesh_launches`)
+  workloads  the JAX package's workload suite through the port's runner
+          (reef_tpu_torch.workloads): the nine workloads beside dna at
+          WORKLOAD_SIZES, in-process through `workloads.argv_for` and
+          cli.main with the routes at their defaults (auto), one line
+          each (wall, device MSMs and sumchecks, the tables left on the
+          host, the `--metrics` stages, its launches with the counts set
+          to 0 just before it); each must verify, the first device MSM of
+          each (curve, n) must equal the native host MSM and the first
+          device sumcheck of each table the host rounds (both held after
+          the workload's wall has stopped), merkle_negate and
+          unicode_mn must make their 2^18 and 2^17 MSMs on the card, every
+          table must run where the sumcheck floor sends it (proj_hybrid's
+          2^14 hybrid table on the card), and K1's reduces, K2, K5's
+          block-per-state launch and K6 must have launched.  Then
+          merkle_negate and proj_hybrid warm on the host routes and on the
+          card, in pairs of alternating order (WORKLOAD_WARM), and `python -m reef_tpu_torch.workloads all --serve --size
+          1000` in a process of its own (one serve worker on the card for
+          all ten workloads), which must exit 0 with every proof verified
 
 Then the bound of each kernel row at the card's integer rate as one JSON
 line, the card's name and power limit, the kernel table as one JSON line
-(its `launches` are the single-device e2e's), and as the last line
+(its `launches` are the single-device e2e's, `suite_launches` the
+workload suite's in-process pass), and as the last line
 {"ok": true,
 "device": {...}}.  Kernel times are
 CUDA events around a run of launches; `device_ms` queues the launches
@@ -124,6 +146,7 @@ JAX.
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import os
@@ -200,7 +223,10 @@ REDUCE_SHAPES = {"fenwick": (32, 16, 256, True), "digits": (32, 256, 1, False)}
 SUMCHECK_KERNEL_LOG = 19
 TREE_CAP = 16384
 TREE_CHECK = {"pallas": (4096, 16384, 65536), "vesta": (4096, 16384)}
-MSM_N = 1 << 16
+MSM_N = 1 << 16                 # the tree phase's points, the plain chunk's
+# msm_device_v3 against the native host MSM: the 1 MB DNA e2e's 2^14 and
+# 2^16, and the workload suite's 2^15, 2^17 and 2^18
+MSM_NS = (1 << 14, 1 << 15, 1 << 16, 1 << 17, 1 << 18)
 ROWS, ROW_N = 4, 4096
 DNA_BYTES = 1_000_000
 POSEIDON_B = 1 << 19
@@ -226,6 +252,27 @@ MESH_STEP_PTS = 2
 E2E_KERNELS = ("padd", "padd_reduce", "msm_tree", "poseidon",
                "poseidon_spread",
                "sumcheck_coeffs", "sumcheck_fold", "sumcheck_eq")
+# the workload suite (reef_tpu_torch.workloads): each workload's size on
+# the card (BASELINE.json configs 4-5 at 100 KB, dkim at the reference
+# script's 1024; password and pihole ignore it), the device MSMs two of them
+# must make, the workload whose hybrid table the sumcheck floor sends to
+# the card, the two timed again warm on the host and on the card (pairs of
+# runs each, host first in even pairs and card first in odd ones), and the
+# kernels the pass must launch (K1 only in its reduces: each workload's
+# 512-value commit is pinned to the host)
+WORKLOAD_SIZES = {"password": 0, "pihole": 0, "dkim": 1024,
+                  "zombie_date": 1000, "unicode": 1000,
+                  "proj_hybrid": 102400, "unicode_proj": 102400,
+                  "unicode_mn": 102400, "merkle_negate": 102400}
+WORKLOAD_MSM_N = {"merkle_negate": 1 << 18, "unicode_mn": 1 << 17}
+WORKLOAD_HYBRID = "proj_hybrid"
+WORKLOAD_WARM = {"merkle_negate": 2, "proj_hybrid": 4}
+WORKLOAD_MSM_KERNELS = ("padd_reduce", "msm_tree")
+WORKLOAD_SUMCHECK_KERNELS = ("poseidon_spread", "sumcheck_coeffs",
+                             "sumcheck_fold", "sumcheck_eq")
+# every workload, dna included, through one serve worker on the card
+SERVE_ARGS = ("all", "--serve", "--size", "1000")
+SERVE_TIMEOUT_S = 420
 # a Montgomery reduction alone: 8 rounds of one 8-limb multiply-add chain
 # pair (lo and hi) plus one m = t0*n0
 MADS_PER_REDC = 8 * (2 * 8 + 1)
@@ -1401,6 +1448,249 @@ def run_e2e(torch, work: str, argv: list, msm: str, sumcheck: str) -> float:
     return wall
 
 
+@contextlib.contextmanager
+def route_spies(exact: bool = False):
+    """Record the device routes' calls inside an e2e: each msm_device_v3
+    (curve, values, seconds, chunks) in `msms`, each device sumcheck
+    (rounds, seconds) in `sumchecks`, each nlookup batch (tag, entries,
+    route, seconds) in `nlookups`.  With `exact`, the first device MSM of
+    each (curve, values) and the first device sumcheck of each (tag,
+    entries) keep their inputs and results: `rec.check()`, called after
+    the e2e's wall has stopped, holds the MSM against the native host MSM
+    on the same values and basis and the sumcheck against the host rounds
+    on copies of its table, point and transcript state (either raises on a
+    mismatch); the keys taken are in `exact_msms` and
+    `exact_sumchecks`."""
+    import types
+    from reef_tpu_torch.backend import witness
+    from reef_tpu_torch.backend.commitment import PedersenGens
+    from reef_tpu_torch.ec import msm_v3, native_msm
+    from reef_tpu_torch.ops import sumcheck_device
+    rec = types.SimpleNamespace(msms=[], sumchecks=[], nlookups=[],
+                                exact_msms=[], exact_sumchecks=[])
+    pending = []                # (what, host function, its args, result)
+
+    def check():
+        while pending:
+            what, host, args, got = pending.pop(0)
+            require(host(*args) == got, what)
+
+    rec.check = check
+    orig_msm = msm_v3.msm_device_v3
+    orig_sc = sumcheck_device.device_sumcheck_rounds
+    orig_nl = witness.nlookup_prove
+    orig_route = PedersenGens._msm_device_route
+
+    def timed(ck, scalars, points):
+        t1 = time.perf_counter()
+        out = orig_msm(ck, scalars, points)      # ends in a copy to the host
+        rec.msms.append((ck.curve.name, len(scalars),
+                         time.perf_counter() - t1, points.n_chunks))
+        return out
+
+    def timed_sc(lf, cache, *args):
+        t1 = time.perf_counter()
+        out = orig_sc(lf, cache, *args)          # ends in a copy to the host
+        rec.sumchecks.append((cache.ell, time.perf_counter() - t1))
+        return out
+
+    def timed_nl(f, table, qs, vs, prev_q, prev_v, tag, doc_hash=None,
+                 device_cache=None, host_cache=None):
+        key = (tag, len(table))
+        check = (exact and device_cache is not None
+                 and key not in rec.exact_sumchecks)
+        if check:
+            rec.exact_sumchecks.append(key)
+            copies = (f, list(table), list(qs), list(vs),
+                      None if prev_q is None else list(prev_q), prev_v, tag,
+                      doc_hash)
+        t1 = time.perf_counter()
+        out = orig_nl(f, table, qs, vs, prev_q, prev_v, tag, doc_hash,
+                      device_cache=device_cache, host_cache=host_cache)
+        rec.nlookups.append((tag, len(table),
+                             "device" if device_cache else "host",
+                             time.perf_counter() - t1))
+        if check:
+            pending.append((f"{tag} sumcheck of {len(table)} entries: "
+                            "device != host rounds", orig_nl, copies,
+                            copy.deepcopy(out)))
+        return out
+
+    def checked_route(self, values):
+        out = orig_route(self, values)
+        key = (self.cv.name, len(values))
+        if exact and key not in rec.exact_msms:
+            rec.exact_msms.append(key)
+            pending.append((f"device MSM {key}: != native host MSM",
+                            lambda gens, vals: native_msm.msm_packed(
+                                gens.cv, vals, gens.packed_G(),
+                                handle=gens.native_basis()),
+                            (self, list(values)), out))
+        return out
+
+    try:
+        msm_v3.msm_device_v3 = timed
+        sumcheck_device.device_sumcheck_rounds = timed_sc
+        witness.nlookup_prove = timed_nl
+        PedersenGens._msm_device_route = checked_route
+        yield rec
+    finally:
+        msm_v3.msm_device_v3 = orig_msm
+        sumcheck_device.device_sumcheck_rounds = orig_sc
+        witness.nlookup_prove = orig_nl
+        PedersenGens._msm_device_route = orig_route
+
+
+def run_serve(torch) -> dict:
+    """`python -m reef_tpu_torch.workloads` with SERVE_ARGS (every workload
+    through one `cli serve` worker on the card, the routes at their
+    defaults) in a process of its own: it must exit 0 with every request
+    verified.  Returns each request's wall (the first includes the
+    worker's warm-up: kernel libraries, bases, caches)."""
+    import re
+    from reef_tpu_torch import workloads as W
+    env = dict(os.environ, PYTHONPATH=W.ROOT)
+    for k in ("REEF_DEVICE_MSM", "REEF_DEVICE_SUMCHECK"):
+        env.pop(k, None)
+    t1 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "reef_tpu_torch.workloads", *SERVE_ARGS],
+        cwd=W.ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=SERVE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)          # the runner and its serve worker
+        proc.communicate()
+        raise RuntimeError(f"serve: no end in {SERVE_TIMEOUT_S} s")
+    wall = time.perf_counter() - t1
+    runs = [m.groups() for m in re.finditer(
+        r"^(\w+)\s+doc=\s*(\d+)B\s+([\d.]+)s\s+(PASS|FAIL)$", out, re.M)]
+    names = list(W.WORKLOADS) if SERVE_ARGS[0] == "all" else [SERVE_ARGS[0]]
+    require(proc.returncode == 0 and [r[0] for r in runs] == names
+            and all(r[3] == "PASS" for r in runs),
+            f"serve: rc {proc.returncode}, runs {runs}:\n{out}\n"
+            f"{err[-4000:]}")
+    return {"process_wall_s": wall,
+            "requests": {r[0]: {"doc_bytes": int(r[1]), "wall_s": float(r[2])}
+                         for r in runs}}
+
+
+def metrics_stages(path: str) -> dict:
+    """The eight largest timers of a `--metrics` CSV in seconds, the
+    prover's fold steps (`prove_<i>`) summed as `Prover/prove_folds`.  The
+    solver's timer overlaps the folds (two threads)."""
+    import csv
+    secs = {}
+    with open(path, encoding="utf-8", newline="") as fh:
+        for kind, comp, test, val, _ in csv.reader(fh):
+            if kind == "time":
+                if comp == "Prover" and test.startswith("prove_") \
+                        and test[6:].isdigit():
+                    test = "prove_folds"
+                key = f"{comp}/{test}"
+                secs[key] = secs.get(key, 0.0) + int(val) / 1e6
+    return dict(sorted(secs.items(), key=lambda kv: -kv[1])[:8])
+
+
+def phase_workloads(torch) -> dict:
+    """The JAX package's workload suite through the port's runner
+    (reef_tpu_torch.workloads), in-process with the routes at their
+    defaults (auto), then warm on the host and the card, then through one
+    serve worker; returns the launches summed over the in-process pass."""
+    from reef_tpu_torch import workloads as W
+    from reef_tpu_torch.backend import witness
+    from reef_tpu_torch.utils import cudabuild, nativebuild
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(dir=nativebuild.build_dir())
+    total, per = {}, {}
+    try:
+        with route_spies(exact=True) as rec:
+            for name, size in WORKLOAD_SIZES.items():
+                n_msm, n_nl = len(rec.msms), len(rec.nlookups)
+                csv_path = os.path.join(work, f"{name}.csv")
+                argv = W.argv_for(name, size, work, metrics=csv_path)
+                cudabuild.reset_counts()
+                t1 = time.perf_counter()
+                wall = run_e2e(torch, work, argv, "auto", "auto")
+                launches = cudabuild.launch_counts()
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+                nls = rec.nlookups[n_nl:]
+                per[name] = {
+                    "doc_bytes": os.path.getsize(argv[argv.index("-d") + 1]),
+                    "wall_s": wall,
+                    "device_msms": [(c, n, ch, s) for c, n, s, ch in
+                                    rec.msms[n_msm:]],
+                    "device_sumchecks": [(tag, n, s) for tag, n, route, s
+                                         in nls if route == "device"],
+                    "host_tables": sorted({(tag, n) for tag, n, route, _
+                                           in nls if route == "host"}),
+                    "nlookups": nls,
+                    "launches": {k: v for k, v in launches.items() if v},
+                    "stages_s": metrics_stages(csv_path)}
+                emit("workload", t1, name=name,
+                     **{k: v for k, v in per[name].items() if k != "nlookups"})
+                rec.check()             # the exactness checks, off the wall
+            # host against card, warm, on the two largest new shapes, in
+            # pairs of alternating order
+            warm = {}
+            runs = (("host_routes", ("0", "0")), ("card", ("auto", "auto")))
+            for name, pairs in WORKLOAD_WARM.items():
+                warm[name] = {"order": [], "host_routes_wall_s": [],
+                              "card_wall_s": [], "host_routes_stages_s": [],
+                              "card_stages_s": []}
+                for i in range(2 * pairs):
+                    run, routes = runs[(i + i // 2) % 2]
+                    csv_path = os.path.join(work, f"{name}_{i}.csv")
+                    argv = W.argv_for(name, WORKLOAD_SIZES[name], work,
+                                      metrics=csv_path)
+                    wall = run_e2e(torch, work, argv, *routes)
+                    rec.check()
+                    warm[name]["order"].append(run)
+                    warm[name][f"{run}_wall_s"].append(wall)
+                    warm[name][f"{run}_stages_s"].append(
+                        metrics_stages(csv_path))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for name, n in WORKLOAD_MSM_N.items():
+        require(any(m[1] == n for m in per[name]["device_msms"]),
+                f"workload {name}: no device MSM of {n} values "
+                f"({per[name]['device_msms']})")
+    msm_keys = {(c, n) for p in per.values() for c, n, _, _ in
+                p["device_msms"]}
+    require(msm_keys <= set(rec.exact_msms),
+            f"workloads: device MSMs {msm_keys} not all held against the "
+            f"host ({rec.exact_msms})")
+    # every lookup table runs where the auto floor sends it
+    floor = witness.DEVICE_SUMCHECK_MIN_N
+    wrong = [(name, tag, n, route) for name, p in per.items()
+             for tag, n, route, _ in p["nlookups"]
+             if (route == "device") != (n >= floor)]
+    require(not wrong, f"workloads: tables off their route (floor {floor}): "
+            f"{wrong}")
+    hybrid = {n for tag, n, _, _ in per[WORKLOAD_HYBRID]["nlookups"]
+              if tag == "nlhybrid"}
+    require(bool(hybrid), f"workload {WORKLOAD_HYBRID}: no hybrid table")
+    on_card = sorted(("nlhybrid", n) for n in hybrid if n >= floor)
+    require(set(on_card) <= set(rec.exact_sumchecks),
+            f"workload {WORKLOAD_HYBRID}: hybrid tables {on_card} not held "
+            f"against the host rounds ({rec.exact_sumchecks})")
+    need = list(WORKLOAD_MSM_KERNELS)
+    if any(p["device_sumchecks"] for p in per.values()):
+        need += WORKLOAD_SUMCHECK_KERNELS
+    require(all(total.get(k, 0) > 0 for k in need),
+            f"workloads: a kernel never launched ({need}): {total}")
+    serve = run_serve(torch)
+    emit("workloads", t0, sizes=WORKLOAD_SIZES, launches=total,
+         hybrid_tables=sorted(hybrid), sumcheck_floor=floor,
+         exact_msms=sorted(rec.exact_msms),
+         exact_sumchecks=sorted(rec.exact_sumchecks),
+         walls_s={k: p["wall_s"] for k, p in per.items()},
+         warm=warm, serve=serve)
+    return total
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -1446,25 +1736,39 @@ def main() -> int:
 
     # ---- msm -------------------------------------------------------------
     t0 = time.perf_counter()
-    n = MSM_N
     res = {}
     for ck in curves:
         cv = ck.curve
-        gens = PedersenGens(cv, b"chip_smoke/msm", n)
-        scalars = [rnd.randrange(cv.order) for _ in range(n)]
-        basis = msm_v3.DeviceBasisV3(ck, gens.G, device=dev)
-        got = msm_v3.msm_device_v3(ck, scalars, basis)
-        want = native_msm.msm_packed(cv, scalars, gens.packed_G(),
-                                     handle=gens.native_basis())
-        require(got == want, f"msm {cv.name}: device != native host MSM")
-        scb = msm_v3.upload_scalars(basis, [scalars])[0]
-        ms = cuda_ms(torch, lambda: msm_v3.msm_windows(ck, basis, scb),
-                     reps=3)
-        t1 = time.perf_counter()
-        msm_v3.msm_device_v3(ck, scalars, basis)
-        call_s = time.perf_counter() - t1
-        res[cv.name] = {"device_ms": ms, "pts_per_s": n / ms * 1e3,
-                        "call_s": call_s}
+        PedersenGens(cv, b"chip_smoke/msm", max(MSM_NS))   # one derivation
+        for n in MSM_NS:
+            gens = PedersenGens(cv, b"chip_smoke/msm", n)
+            scalars = [rnd.randrange(cv.order) for _ in range(n)]
+            t1 = time.perf_counter()
+            basis = msm_v3.DeviceBasisV3(ck, gens.G, device=dev)
+            torch.cuda.synchronize()
+            basis_s = time.perf_counter() - t1
+            got = msm_v3.msm_device_v3(ck, scalars, basis)
+            host = partial(native_msm.msm_packed, cv, scalars,
+                           gens.packed_G(), handle=gens.native_basis())
+            want = host()
+            require(got == want, f"msm {cv.name} n={n}: device != native "
+                    f"host MSM")
+            scb = msm_v3.upload_scalars(basis, [scalars])[0]
+            ms = cuda_ms(torch, lambda: msm_v3.msm_windows(ck, basis, scb),
+                         reps=3)
+            call_s, host_s = [], []
+            for _ in range(2):
+                t1 = time.perf_counter()
+                msm_v3.msm_device_v3(ck, scalars, basis)
+                call_s.append(time.perf_counter() - t1)
+                t1 = time.perf_counter()
+                host()
+                host_s.append(time.perf_counter() - t1)
+            res[f"{cv.name}_2e{n.bit_length() - 1}"] = {
+                "n": n, "chunks": basis.n_chunks, "device_ms": ms,
+                "pts_per_s": n / ms * 1e3, "call_s": call_s,
+                "native_host_s": host_s, "basis_upload_s": basis_s}
+    n = MSM_N
     # one chunk of the plain pipeline on the card (no yardstick)
     ck = curves[0]
     acc = ck.ident_t(dev)[:, :, None, None].expand(
@@ -1489,7 +1793,8 @@ def main() -> int:
     want = [native_msm.msm_packed(ck.curve, r, gens.packed_G(),
                                   handle=gens.native_basis()) for r in rows]
     require(got == want, "msm rows: device != native host MSM")
-    emit("msm", t0, n=n, chunk=msm_v3.default_cap(), rows=R, row_n=nr,
+    emit("msm", t0, n=list(MSM_NS), chunk=msm_v3.default_cap(), rows=R,
+         row_n=nr,
          kernel_chunk_ms=kernel_chunk_ms,
          plain_chunk_ms_no_yardstick=plain_chunk_ms, **res)
 
@@ -1510,33 +1815,8 @@ def main() -> int:
 
     # ---- e2e: the main path ----------------------------------------------
     t0 = time.perf_counter()
-    from reef_tpu_torch.backend import witness
     from reef_tpu_torch.ops import sumcheck_device
     from reef_tpu_torch.parallel import mesh as PM
-    msms, sumchecks, nlookups = [], [], []
-    orig = msm_v3.msm_device_v3
-    orig_sc = sumcheck_device.device_sumcheck_rounds
-    orig_nl = witness.nlookup_prove
-
-    def timed(ck, scalars, points):
-        t1 = time.perf_counter()
-        out = orig(ck, scalars, points)      # ends in a copy to the host
-        msms.append((ck.curve.name, len(scalars), time.perf_counter() - t1,
-                     points.n_chunks))
-        return out
-
-    def timed_sc(lf, cache, *args):
-        t1 = time.perf_counter()
-        out = orig_sc(lf, cache, *args)      # ends in a copy to the host
-        sumchecks.append((cache.ell, time.perf_counter() - t1))
-        return out
-
-    def timed_nl(f, table, *args, device_cache=None, **kw):
-        t1 = time.perf_counter()
-        out = orig_nl(f, table, *args, device_cache=device_cache, **kw)
-        nlookups.append((len(table), "device" if device_cache else "host",
-                         time.perf_counter() - t1))
-        return out
 
     work = tempfile.mkdtemp(dir=nativebuild.build_dir())
     size = DNA_BYTES
@@ -1551,23 +1831,27 @@ def main() -> int:
         mesh_calls[name] += name == "sharded_msm" or len(a[1]) > 1
         return fn(*a)
 
+    def taken(rec):
+        # the nlookup batches (entries, route, seconds) since the last call
+        out = [(n, route, secs) for _, n, route, secs in rec.nlookups]
+        rec.nlookups.clear()
+        return out
+
     nl_runs = {}
     try:
-        msm_v3.msm_device_v3 = timed
-        sumcheck_device.device_sumcheck_rounds = timed_sc
-        witness.nlookup_prove = timed_nl
-        cudabuild.reset_counts()
-        wall = e2e("1", "auto")
-        launches = cudabuild.launch_counts()
-        msm_v3.msm_device_v3 = orig
-        sumcheck_device.device_sumcheck_rounds = orig_sc
-        nl_runs["cold"], nlookups[:] = list(nlookups), []
-        # the same run again, warm (generators, circuits and bases cached
-        # in the process): both routes on the host, then on the card
-        host_wall = e2e("0", "0")
-        nl_runs["warm_host_routes"], nlookups[:] = list(nlookups), []
-        warm_wall = e2e("1", "auto")
-        nl_runs["warm"] = list(nlookups)
+        with route_spies() as rec:
+            cudabuild.reset_counts()
+            wall = e2e("1", "auto")
+            launches = cudabuild.launch_counts()
+            msms, sumchecks = list(rec.msms), list(rec.sumchecks)
+            nl_runs["cold"] = taken(rec)
+            # the same run again, warm (generators, circuits and bases
+            # cached in the process): both routes on the host, then on the
+            # card
+            host_wall = e2e("0", "0")
+            nl_runs["warm_host_routes"] = taken(rec)
+            warm_wall = e2e("1", "auto")
+            nl_runs["warm"] = taken(rec)
         # once more on the card, under the profiler: device time by kernel
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1582,9 +1866,6 @@ def main() -> int:
         mesh_wall = e2e("1", "auto")
         mesh_launches = cudabuild.launch_counts()
     finally:
-        msm_v3.msm_device_v3 = orig
-        sumcheck_device.device_sumcheck_rounds = orig_sc
-        witness.nlookup_prove = orig_nl
         PM.sharded_msm = orig_mesh_msm
         sumcheck_device.sharded_rounds = orig_mesh_rounds
         PM.select(None)
@@ -1639,10 +1920,15 @@ def main() -> int:
          mesh_devices=mesh_devs, mesh_wall_s=mesh_wall,
          mesh_calls=mesh_calls, mesh_launches=mesh_launches)
 
+    # ---- workloads: the JAX package's suite through the port's runner -----
+    suite = phase_workloads(torch)
+
     # every row's launches are the e2e's (K3 and K4, and K1's SPREAD add,
-    # run off its path: their phases' lines give their launches there)
+    # run off its path: their phases' lines give their launches there);
+    # the workload suite's in-process pass beside them
     for name, k in kernels.items():
         k["launches"] = launches[name]
+        k["suite_launches"] = suite.get(name, 0)
         k["per_e2e_ms"] = per_e2e.get(name)
     kernels["poseidon"]["spread_launches"] = launches["poseidon_spread"]
     # the bound at the card's integer rate, beside the kernel table

@@ -26,9 +26,7 @@ import time
 from typing import List, Optional
 
 from .backend import framework as FW
-from .frontend import parser as rparser
-from .frontend import regex as R
-from .frontend.safa import SAFA
+from .frontend.safa import SAFA, from_regex
 from .utils import device, serialize
 from .utils.metrics import Metrics
 
@@ -115,13 +113,15 @@ def build_safa(args, ab: Optional[List[int]]) -> SAFA:
     """SAFA construction is deterministic in (regex, alphabet, negate):
     cache it so a serve-mode worker proving the SAME policy regex over
     many documents builds the automaton once (the reference re-derives
-    per process, main.rs:57-72; a proving service amortizes)."""
+    per process, main.rs:57-72; a proving service amortizes).  Each build
+    is `from_regex`'s, from a fresh process's regex terms, so the
+    automaton, and so the proof, does not depend on the regexes the
+    process built before."""
     ab_str = None if ab is None else "".join(chr(c) for c in ab)
     key = (args.re, ab_str, bool(args.negate))
     safa = _SAFA_CACHE.get(key)
     if safa is None:
-        r = R.simpl(rparser.parse(args.re))
-        safa = SAFA(ab_str, r)
+        safa = from_regex(ab_str, args.re)
         if args.negate:
             safa = safa.negate()
         if len(_SAFA_CACHE) > 16:

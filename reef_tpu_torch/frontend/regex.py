@@ -84,6 +84,18 @@ def _mk(tag, a=None, b=None, lo=0, hi=0, cc=None) -> Regex:
     return r
 
 
+def reset_terms() -> None:
+    """Forget every interned term and every cached derivative, as in a
+    fresh process.  The intern ids order the canonical forms (`simpl`'s
+    sorted alternatives, the SAFA's fork children); `safa.from_regex`
+    resets before each build.  Terms built before a reset must not be
+    combined with terms built after it."""
+    _TABLE.clear()
+    _COUNTER[0] = 0
+    _DERIV_CACHE.clear()
+    _BOUNDS_CACHE.clear()
+
+
 # ---------------------------------------------------------------------------
 # raw constructors (used by the parser; `simpl` applies the smart ones)
 # ---------------------------------------------------------------------------

@@ -468,6 +468,18 @@ class SAFA:
         return f[0] if f is not None else None
 
 
+def from_regex(alphabet, regex_str: str) -> SAFA:
+    """The SAFA of `regex_str` over `alphabet`, built from a fresh
+    process's regex terms (`R.reset_terms`): the intern ids order the
+    canonical forms, so an automaton built after other regexes could
+    differ from the one another process builds, and its proofs fail that
+    process's verifier.  Terms built before the call must not be combined
+    with the SAFA's."""
+    from . import parser
+    R.reset_terms()
+    return SAFA(alphabet, R.simpl(parser.parse(regex_str)))
+
+
 def write_dot(safa: SAFA, filename: str) -> str:
     """Write a Graphviz .dot of the SAFA; converts to PDF if `dot` exists
     (the reference's plot feature, safa.rs:494-526)."""

@@ -87,8 +87,7 @@ def dryrun_multichip(devices: Sequence, msm_n: int = 64,
     from ..backend.table import TransitionTable, doc_transform
     from ..ec.msm import pallas_kernels
     from ..ec.native_msm import msm_packed
-    from ..frontend import parser, regex as R
-    from ..frontend.safa import SAFA
+    from ..frontend.safa import from_regex
     from ..ops import field as F
     from ..ops import sumcheck_device as SD
     from ..ops.limb import FQ as LFQ
@@ -105,7 +104,7 @@ def dryrun_multichip(devices: Sequence, msm_n: int = 64,
         log(f"dryrun +{out[f'{step}_s']:7.2f}s  {step}: {msg}")
 
     # 1. a real table, real lookups: the sharded transcript = the host's
-    safa = SAFA("ab", R.simpl(parser.parse(".*b")))
+    safa = from_regex("ab", ".*b")
     codes = [ord(c) for c in "aaaaaaaab"]
     udoc = doc_transform(safa.ab, codes)
     table = TransitionTable(safa, udoc, len(udoc), len(codes),

@@ -4,13 +4,12 @@ The two packages' files must work with each other: a seeded commitment
 is byte-identical, and each side's verifier accepts the other side's
 `.cmt`/`.proof` pair (proofs are randomised, so their bytes differ), also
 when the port proves on a mesh of eight CPU shards.  The
-port also must not import JAX or the JAX package, and `chip_smoke.py`
+port also must not import JAX, the JAX package or its workload runner
+(`workloads/`), and `chip_smoke.py`
 must refuse to run where torch sees no CUDA device.
 """
 
 import ast
-import contextlib
-import io
 import json
 import os
 import shutil
@@ -20,8 +19,8 @@ import sys
 import pytest
 import torch
 
-from _torch_support import (no_compile_cache_writes,  # noqa: F401
-                            one_torch_thread)
+from _torch_support import (cross_verify, no_compile_cache_writes,  # noqa: F401
+                            one_torch_thread, run_cli)
 from reef_tpu import cli as ref_cli
 from reef_tpu_torch import cli
 from reef_tpu_torch.ops import poseidon_device, sumcheck_device
@@ -50,23 +49,13 @@ def _host_routes(monkeypatch, tmp_path):
     monkeypatch.setattr(device, "_SELECTED", None)
 
 
-def _run(main, argv) -> str:
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        main(argv)
-    return out.getvalue()
-
-
-def _port(mode: str, case, *extra) -> str:
+def _argv(case) -> list:
+    """The port's `--e2e` arguments for `case`, its document written to
+    doc.txt."""
     ab, doc, rx, flags = case
-    return _run(cli.main, [ab, mode, "-d", "doc.txt", "-r", rx, *flags,
-                           "--device", "cpu", *extra])
-
-
-def _ref(mode: str, case, *extra) -> str:
-    ab, doc, rx, flags = case
-    return _run(ref_cli.main, [ab, mode, "-d", "doc.txt", "-r", rx, *flags,
-                               *extra])
+    with open("doc.txt", "w") as fh:
+        fh.write(doc)
+    return [ab, "--e2e", "-d", "doc.txt", "-r", rx, *flags, "--device", "cpu"]
 
 
 @pytest.mark.parametrize("flags", [[], ["-m"]], ids=["hyrax", "merkle"])
@@ -78,7 +67,7 @@ def test_seeded_commitment_is_byte_identical(tmp_path, flags):
         (tmp_path / name).mkdir()
         shutil.copy(tmp_path / "doc.txt", tmp_path / name / "doc.txt")
         os.chdir(tmp_path / name)
-        _run(main, ["ascii", "--commit", "-d", "doc.txt", "--seed", "7",
+        run_cli(main, ["ascii", "--commit", "-d", "doc.txt", "--seed", "7",
                     *flags, *extra])
         files[name] = sorted(os.listdir("."))
     assert files["port"] == files["ref"]
@@ -89,61 +78,38 @@ def test_seeded_commitment_is_byte_identical(tmp_path, flags):
 
 @pytest.mark.parametrize("case", [MERKLE, NEGATE], ids=["merkle", "negate"])
 @pytest.mark.parametrize("prover", ["port", "ref"])
-def test_cross_verify(tmp_path, case, prover):
-    """One side commits and proves, the other side verifies."""
-    (tmp_path / "doc.txt").write_text(case[1])
-    if prover == "port":
-        _port("--commit", case)
-        _port("--prove", case)
-        out = _ref("--verify", case)
-    else:
-        _ref("--commit", case)
-        _ref("--prove", case)
-        out = _port("--verify", case)
-    assert "Verification PASSED" in out
+def test_cross_verify(monkeypatch, case, prover):
+    """One side commits and proves on its host routes, the other side
+    verifies."""
+    cross_verify(monkeypatch, _argv(case), prover, device_sumcheck=False)
 
 
 @pytest.mark.parametrize("case", [DNA, PROJ_HYBRID], ids=["dna", "proj-hybrid"])
 @pytest.mark.parametrize("prover", ["port", "ref"])
-def test_cross_verify_device_sumcheck(monkeypatch, tmp_path, case, prover):
+def test_cross_verify_device_sumcheck(monkeypatch, case, prover):
     """The port proves with every nlookup batch on its device route, whose
     Fiat-Shamir sponge is one state permuted at a time
     (`poseidon_device.permute` at B = 1, K5's launch of a block per state
     on the card), and the JAX package verifies; the JAX package proves on
     its host routes, and the port verifies."""
-    (tmp_path / "doc.txt").write_text(case[1])
-    monkeypatch.setenv("REEF_DEVICE_MSM", "0")
+    batches = []
+    orig = poseidon_device.permute
+
+    def counted(lf, state):
+        batches.append(state.shape[2])
+        return orig(lf, state)
+
     if prover == "port":
-        batches = []
-        orig = poseidon_device.permute
-
-        def counted(lf, state):
-            batches.append(state.shape[2])
-            return orig(lf, state)
-
         monkeypatch.setattr(poseidon_device, "permute", counted)
-        monkeypatch.setenv("REEF_DEVICE_SUMCHECK", "1")
-        _port("--commit", case)
-        _port("--prove", case)
-        assert batches and set(batches) == {1}
-        monkeypatch.setenv("REEF_DEVICE_SUMCHECK", "0")
-        out = _ref("--verify", case)
-    else:
-        monkeypatch.setenv("REEF_DEVICE_SUMCHECK", "0")
-        _ref("--commit", case)
-        _ref("--prove", case)
-        out = _port("--verify", case)
-    assert "Verification PASSED" in out
+    cross_verify(monkeypatch, _argv(case), prover)
+    assert prover == "ref" or (batches and set(batches) == {1})
 
 
-def test_cross_verify_mesh_sumcheck(monkeypatch, tmp_path):
+def test_cross_verify_mesh_sumcheck(monkeypatch):
     """The port proves with every nlookup batch on its device route over a
     process mesh of eight CPU shards (the document's table split over
     them, `sharded_rounds`; the smaller transition table on the lead), and
     the JAX package verifies."""
-    (tmp_path / "doc.txt").write_text(DNA_MESH[1])
-    monkeypatch.setenv("REEF_DEVICE_MSM", "0")
-    monkeypatch.setenv("REEF_DEVICE_SUMCHECK", "1")
     monkeypatch.setattr(mesh, "_PROCESS_MESH", None)
     mesh.select(["cpu"] * 8)
     sharded = []
@@ -155,11 +121,8 @@ def test_cross_verify_mesh_sumcheck(monkeypatch, tmp_path):
         return orig(lf, t_shards, *a)
 
     monkeypatch.setattr(sumcheck_device, "sharded_rounds", counted)
-    _port("--commit", DNA_MESH)
-    _port("--prove", DNA_MESH)
+    cross_verify(monkeypatch, _argv(DNA_MESH), "port")
     assert sharded and set(sharded) == {8}
-    monkeypatch.setenv("REEF_DEVICE_SUMCHECK", "0")
-    assert "Verification PASSED" in _ref("--verify", DNA_MESH)
 
 
 def test_serve_answers_requests(tmp_path):
@@ -216,7 +179,7 @@ def test_port_imports_neither_jax_nor_reef_tpu():
                 continue
             for mod in mods:
                 top = mod.split(".")[0]
-                if top in ("jax", "jaxlib", "reef_tpu"):
+                if top in ("jax", "jaxlib", "reef_tpu", "workloads"):
                     bad.append(f"{os.path.relpath(path, ROOT)}:"
                                f"{node.lineno}: {mod}")
     assert not bad, bad

@@ -13,7 +13,8 @@ values) to the mesh and the rest to the host MSM.
 import pytest
 import torch
 
-from _torch_support import (no_compile_cache_writes,  # noqa: F401
+from _torch_support import (fresh_reference_terms,
+                            no_compile_cache_writes,  # noqa: F401
                             one_torch_thread)
 from reef_tpu.backend import framework as ref_fw
 from reef_tpu.frontend import parser, regex as R
@@ -54,6 +55,7 @@ def test_dryrun_multichip_on_eight_cpu_shards(monkeypatch, tmp_path):
     commit = ref_serialize.loads(port_serialize.dumps("cmt", commit), "cmt")
     proofs = ref_serialize.loads(port_serialize.dumps("proof", proofs),
                                  "proof")
+    fresh_reference_terms()              # the verifier as a fresh process
     safa = SAFA("ab", R.simpl(parser.parse(".*b")))
     assert ref_fw.run_verifier(commit, safa, proofs, batch_size=2)
 
