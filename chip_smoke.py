@@ -111,6 +111,20 @@ script exits non-zero and prints no result:
           prove and verify, sharded_msm and the sharded sumcheck rounds
           must each have run, and K1, K2, K5 and K6 must have launched in
           it (its counts, set to 0 just before it, are `mesh_launches`)
+  reject  the cold e2e run's own .cmt/.proof pair (made with K1, K2, K5's
+          block-per-state launch and K6 on the card), read back with
+          serialize.load: it must verify, and REJECT_LEAVES seeded int
+          leaves of the proof, each plus one, and three hostile
+          compressed points (an x off the curve, an x >= p, an unknown
+          flag, each in a seeded point field of the IVC proof) must each
+          be refused by the port's verifier (False or its VerifyError)
+  options the CLI options no other phase proves: `-p` and `-y` alone on
+          OPTION_DNA_BYTES of the dna.sh document, `--alpha-numeric`,
+          `--basic-english` and `--ignore-whitespace` on
+          OPTION_ASCII_BYTES of ascii text, in-process on `auto`; each
+          must prove and verify, its tables must run where the sumcheck
+          floor sends them, and its first device MSM and sumcheck of
+          each size are held against the host after the walls
   workloads  the JAX package's workload suite through the port's runner
           (reef_tpu_torch.workloads): the nine workloads beside dna at
           WORKLOAD_SIZES, in-process through `workloads.argv_for` and
@@ -129,11 +143,17 @@ script exits non-zero and prints no result:
           card, in pairs of alternating order (WORKLOAD_WARM), and `python -m reef_tpu_torch.workloads all --serve --size
           1000` in a process of its own (one serve worker on the card for
           all ten workloads), which must exit 0 with every proof verified
+  card_tests  `python -m pytest --noconftest -p no:cacheprovider -m cuda
+          tests/test_torch_card_*.py` in a process of its own, which
+          imports no JAX: every kernel against its plain version and
+          python ints, as the tests hold them; it must exit 0 with every
+          collected test passed and none skipped
 
 Then the bound of each kernel row at the card's integer rate as one JSON
 line, the card's name and power limit, the kernel table as one JSON line
 (its `launches` are the single-device e2e's, `suite_launches` the
-workload suite's in-process pass), and as the last line
+workload suite's in-process pass, `options_launches`, `reject_launches`
+and `card_tests_launches` those phases'), and as the last line
 {"ok": true,
 "device": {...}}.  Kernel times are
 CUDA events around a run of launches; `device_ms` queues the launches
@@ -273,6 +293,31 @@ WORKLOAD_SUMCHECK_KERNELS = ("poseidon_spread", "sumcheck_coeffs",
 # every workload, dna included, through one serve worker on the card
 SERVE_ARGS = ("all", "--serve", "--size", "1000")
 SERVE_TIMEOUT_S = 420
+# the CLI options no other phase proves, each on the routes' defaults
+# (auto): the proof modes on a DNA document of OPTION_DNA_BYTES, the
+# character transforms on an ascii one of OPTION_ASCII_BYTES
+OPTION_DNA_BYTES = 102400
+OPTION_ASCII_BYTES = 8192
+OPTION_TEXT = "Hello World, hello REEF reef! "
+# (alphabet, flags, regex of a document of n bytes); the -p document's
+# motif sits after a skip, as in dna.sh
+OPTIONS = {
+    "-p": ("dna", ["-p"], lambda n: f"^.{{{n - len(DNA_MOTIF)}}}{DNA_MOTIF}.*"),
+    "-y": ("dna", ["-y"], lambda n: f".*{DNA_MOTIF}.*"),
+    "--alpha-numeric": ("ascii", ["--alpha-numeric"],
+                        lambda n: "^HelloWorld.*REEFreef$"),
+    "--basic-english": ("ascii", ["--basic-english"],
+                        lambda n: "^Hello World, hello.*reef! $"),
+    "--ignore-whitespace": ("ascii", ["--ignore-whitespace"],
+                            lambda n: "^HelloWorld,hello.*reef!$"),
+}
+# the e2e's own proof, forged: seeded int leaves mutated (one at a time)
+# and hostile compressed points, each of which the verifier must refuse
+REJECT_LEAVES = 16
+REJECT_SEED = 20261017
+# the card lane of the test suite: the cuda-marked tests, without JAX
+CARD_TESTS = "tests/test_torch_card_*.py"
+CARD_TESTS_TIMEOUT_S = 600
 # a Montgomery reduction alone: 8 rounds of one 8-limb multiply-add chain
 # pair (lo and hi) plus one m = t0*n0
 MADS_PER_REDC = 8 * (2 * 8 + 1)
@@ -1691,6 +1736,202 @@ def phase_workloads(torch) -> dict:
     return total
 
 
+def phase_options(torch) -> dict:
+    """The CLI options no other phase proves (OPTIONS), each proved and
+    verified in-process on the card with the routes at their defaults
+    (auto), its launches counted from 0; the first device MSM and the
+    first device sumcheck of each size held against the host after the
+    walls.  Returns the launches summed over the phase."""
+    from reef_tpu_torch.backend import witness
+    from reef_tpu_torch.utils import cudabuild, nativebuild
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(dir=nativebuild.build_dir())
+    total, per = {}, {}
+    floor = witness.DEVICE_SUMCHECK_MIN_N
+    try:
+        with route_spies(exact=True) as rec:
+            for opt, (ab, flags, regex) in OPTIONS.items():
+                if ab == "dna":
+                    text = dna_text(OPTION_DNA_BYTES)
+                else:
+                    reps = OPTION_ASCII_BYTES // len(OPTION_TEXT)
+                    text = OPTION_TEXT * reps
+                doc = os.path.join(work, "option.txt")
+                with open(doc, "w") as fh:
+                    fh.write(text)
+                argv = [ab, "--e2e", "-d", doc, "-r", regex(len(text)),
+                        "-b", "0", *flags]
+                n_msm, n_nl = len(rec.msms), len(rec.nlookups)
+                cudabuild.reset_counts()
+                wall = run_e2e(torch, work, argv, "auto", "auto")
+                launches = cudabuild.launch_counts()
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+                nls = rec.nlookups[n_nl:]
+                wrong = [(tag, n, route) for tag, n, route, _ in nls
+                         if (route == "device") != (n >= floor)]
+                require(not wrong, f"options {opt}: tables off their route "
+                        f"(floor {floor}): {wrong}")
+                per[opt] = {"doc_bytes": len(text), "wall_s": wall,
+                            "device_msms": [(c, n) for c, n, _, _ in
+                                            rec.msms[n_msm:]],
+                            "tables": [(tag, n, route) for tag, n, route, _
+                                       in nls],
+                            "launches": {k: v for k, v in launches.items()
+                                         if v}}
+            rec.check()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit("options", t0, options=per, launches=total,
+         exact_msms=sorted(rec.exact_msms),
+         exact_sumchecks=sorted(rec.exact_sumchecks))
+    return total
+
+
+def int_leaves(obj, path=()):
+    """(path, value) for every int leaf of a proof object: through its
+    dataclasses, lists and tuples (bools excluded)."""
+    if isinstance(obj, bool):
+        return
+    if isinstance(obj, int):
+        yield path, obj
+        return
+    if isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            yield from int_leaves(v, path + (i,))
+        return
+    for k, v in getattr(obj, "__dict__", {}).items():
+        yield from int_leaves(v, path + (k,))
+
+
+def with_leaf(root, path, fn):
+    """A deep copy of `root` with the leaf at `path` replaced by
+    fn(leaf); tuples on the way are rebuilt."""
+    def rebuilt(obj, steps):
+        if not steps:
+            return fn(obj)
+        step, rest = steps[0], steps[1:]
+        if isinstance(obj, tuple):
+            items = list(obj)
+            items[step] = rebuilt(items[step], rest)
+            return tuple(items)
+        if isinstance(obj, list):
+            obj[step] = rebuilt(obj[step], rest)
+        else:
+            setattr(obj, step, rebuilt(getattr(obj, step), rest))
+        return obj
+    return rebuilt(copy.deepcopy(root), list(path))
+
+
+def phase_reject(torch, cmt_path: str, proof_path: str, argv: list) -> dict:
+    """The e2e's own `.cmt`/`.proof` pair, made on the card, read back
+    with serialize.load: it must verify untouched, and each of
+    REJECT_LEAVES seeded int leaves plus one, and each of three hostile
+    compressed points (an x off the curve, an x >= p, an unknown flag,
+    each in a seeded point field of the IVC proof), must be refused by the
+    port's verifier (False, or its VerifyError; any other exception fails
+    the phase).  Returns the launches of the phase's verifications."""
+    from reef_tpu_torch.backend import framework as FW
+    from reef_tpu_torch.ec.pasta import PALLAS, VESTA
+    from reef_tpu_torch.errors import VerifyError
+    from reef_tpu_torch.frontend.safa import from_regex
+    from reef_tpu_torch.utils import cudabuild, serialize
+    t0 = time.perf_counter()
+    commit = serialize.load(cmt_path, "cmt")
+    proofs = serialize.load(proof_path, "proof")
+    regex = argv[argv.index("-r") + 1]
+    batch = int(argv[argv.index("-b") + 1])
+    safa = from_regex("ACGT", regex)
+
+    def verdict(p) -> bool:
+        try:
+            return FW.run_verifier(commit, safa, p, batch_size=batch)
+        except VerifyError:
+            return False
+
+    cudabuild.reset_counts()
+    t1 = time.perf_counter()
+    require(verdict(proofs), "reject: the untouched e2e proof did not verify")
+    honest_s = time.perf_counter() - t1
+    rng = random.Random(REJECT_SEED)
+    leaves = [pth for pth, _ in int_leaves(proofs)]
+    require(len(leaves) > 200, f"reject: {len(leaves)} int leaves")
+    forged = [("leaf", pth, with_leaf(proofs, pth, lambda v: v + 1))
+              for pth in rng.sample(leaves, REJECT_LEAVES)]
+    fields = ["U1_W", "U1_E", "U2_W", "U2_E", "u2_W", "T_last"]
+    for kind in ("off the curve", "x >= p", "unknown flag"):
+        field = rng.choice(fields)
+        cv = PALLAS if field.startswith("U1") else VESTA
+        x = 7                       # the first x with no y on the curve
+        while (kind == "off the curve"
+               and cv.sqrt((x ** 3 + 5) % cv.p) is not None):
+            x += 1
+        comp = {"off the curve": (x, 0), "x >= p": (cv.p + 1, 0),
+                "unknown flag": (5, 7)}[kind]
+        p2 = copy.deepcopy(proofs)
+        setattr(p2.ivc, field, comp)
+        forged.append((kind, (field,), p2))
+    accepted, secs = [], []
+    for kind, pth, p2 in forged:
+        t1 = time.perf_counter()
+        if verdict(p2):
+            accepted.append((kind, pth))
+        secs.append(time.perf_counter() - t1)
+    launches = cudabuild.launch_counts()
+    require(not accepted, f"reject: forged proofs verified: {accepted}")
+    emit("reject", t0, leaves=len(leaves), forged=len(forged),
+         mutated=[list(map(str, pth)) for kind, pth, _ in forged],
+         honest_verify_s=honest_s, forged_verify_s=secs,
+         launches={k: v for k, v in launches.items() if v})
+    return launches
+
+
+def phase_card_tests() -> dict:
+    """`python -m pytest --noconftest -p no:cacheprovider -m cuda
+    tests/test_torch_card_*.py` in a process of its own (no JAX there):
+    it must exit 0 with every collected test passed and none skipped.
+    Returns the launches of its run (written by the `_torch_card_support`
+    plugin)."""
+    import glob
+    import xml.etree.ElementTree as ET
+    from reef_tpu_torch.utils import nativebuild
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    files = sorted(glob.glob(os.path.join(root, CARD_TESTS)))
+    require(len(files) >= 5, f"card_tests: {files}")
+    work = tempfile.mkdtemp(dir=nativebuild.build_dir())
+    xml, counts = os.path.join(work, "junit.xml"), os.path.join(work, "n.json")
+    env = dict(os.environ, REEF_CARD_COUNTS=counts,
+               PYTHONPATH=os.pathsep.join([root, os.path.join(root, "tests")]))
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "pytest", "--noconftest", "-p",
+             "no:cacheprovider", "-p", "_torch_card_support", "-m", "cuda",
+             "-q", f"--junitxml={xml}",
+             *[os.path.relpath(f, root) for f in files]],
+            cwd=root, env=env, capture_output=True, text=True,
+            timeout=CARD_TESTS_TIMEOUT_S)
+        require(os.path.exists(xml), f"card_tests: no report, rc "
+                f"{proc.returncode}:\n{proc.stdout[-4000:]}"
+                f"\n{proc.stderr[-4000:]}")
+        suite = ET.parse(xml).getroot()
+        suite = suite if suite.tag == "testsuite" else suite[0]
+        n = {k: int(suite.get(k)) for k in ("tests", "failures", "errors",
+                                            "skipped")}
+        with open(counts) as fh:
+            launches = json.load(fh)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    require(proc.returncode == 0 and n["tests"] > 0
+            and n["failures"] == n["errors"] == n["skipped"] == 0,
+            f"card_tests: rc {proc.returncode}, {n}:\n"
+            f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    emit("card_tests", t0, files=[os.path.basename(f) for f in files],
+         passed=n["tests"], launches={k: v for k, v in launches.items() if v},
+         summary=proc.stdout.strip().splitlines()[-1])
+    return launches
+
+
 def main() -> int:
     t_all = time.perf_counter()
     import torch
@@ -1820,7 +2061,8 @@ def main() -> int:
 
     work = tempfile.mkdtemp(dir=nativebuild.build_dir())
     size = DNA_BYTES
-    e2e = partial(run_e2e, torch, work, dna_argv(work, size))
+    argv = dna_argv(work, size)
+    e2e = partial(run_e2e, torch, work, argv)
 
     mesh_calls = {"sharded_msm": 0, "sharded_rounds": 0}
     orig_mesh_msm = PM.sharded_msm
@@ -1843,6 +2085,11 @@ def main() -> int:
             cudabuild.reset_counts()
             wall = e2e("1", "auto")
             launches = cudabuild.launch_counts()
+            # the cold run's own .cmt/.proof pair, for phase reject
+            kept = tempfile.mkdtemp(dir=nativebuild.build_dir())
+            pair = {ext: shutil.copy(os.path.join(work, name), kept)
+                    for name in os.listdir(work)
+                    for ext in (".cmt", ".proof") if name.endswith(ext)}
             msms, sumchecks = list(rec.msms), list(rec.sumchecks)
             nl_runs["cold"] = taken(rec)
             # the same run again, warm (generators, circuits and bases
@@ -1920,8 +2167,22 @@ def main() -> int:
          mesh_devices=mesh_devs, mesh_wall_s=mesh_wall,
          mesh_calls=mesh_calls, mesh_launches=mesh_launches)
 
+    # ---- reject: the e2e's own proof, forged ------------------------------
+    try:
+        require(sorted(pair) == [".cmt", ".proof"],
+                f"e2e: its .cmt/.proof pair is not in {work}: {pair}")
+        reject = phase_reject(torch, pair[".cmt"], pair[".proof"], argv)
+    finally:
+        shutil.rmtree(kept, ignore_errors=True)
+
+    # ---- options: the CLI options no other phase proves -------------------
+    options = phase_options(torch)
+
     # ---- workloads: the JAX package's suite through the port's runner -----
     suite = phase_workloads(torch)
+
+    # ---- card_tests: the cuda-marked tests, in a process without JAX -----
+    card_tests = phase_card_tests()
 
     # every row's launches are the e2e's (K3 and K4, and K1's SPREAD add,
     # run off its path: their phases' lines give their launches there);
@@ -1929,6 +2190,9 @@ def main() -> int:
     for name, k in kernels.items():
         k["launches"] = launches[name]
         k["suite_launches"] = suite.get(name, 0)
+        k["options_launches"] = options.get(name, 0)
+        k["reject_launches"] = reject.get(name, 0)
+        k["card_tests_launches"] = card_tests.get(name, 0)
         k["per_e2e_ms"] = per_e2e.get(name)
     kernels["poseidon"]["spread_launches"] = launches["poseidon_spread"]
     # the bound at the card's integer rate, beside the kernel table

@@ -5,7 +5,8 @@ is byte-identical, and each side's verifier accepts the other side's
 `.cmt`/`.proof` pair (proofs are randomised, so their bytes differ), also
 when the port proves on a mesh of eight CPU shards.  The
 port also must not import JAX, the JAX package or its workload runner
-(`workloads/`), and `chip_smoke.py`
+(`workloads/`), nor may the card lane's tests (`tests/test_torch_card_*.py`
+and their helper), and `chip_smoke.py`
 must refuse to run where torch sees no CUDA device.
 """
 
@@ -161,12 +162,20 @@ def _port_sources():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(ROOT, "chip_smoke.py")
+    # the card lane: its tests and their helper run where no JAX is
+    tests = os.path.join(ROOT, "tests")
+    card = sorted(n for n in os.listdir(tests)
+                  if n.startswith("test_torch_card_") and n.endswith(".py"))
+    assert len(card) >= 5, card
+    for name in ["_torch_card_support.py"] + card:
+        yield os.path.join(tests, name)
 
 
 def test_port_imports_neither_jax_nor_reef_tpu():
     bad = []
     sources = list(_port_sources())
     assert len(sources) > 40
+    assert any(p.endswith("_torch_card_support.py") for p in sources)
     for path in sources:
         with open(path) as fh:
             tree = ast.parse(fh.read(), path)

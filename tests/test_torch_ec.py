@@ -5,9 +5,9 @@ same canonical projective coordinates as the JAX package's `ec.msm.padd`
 and as the TPU kernel's body, `ec.pallas_ec.padd_tiles` /
 `padd_affine_tiles`, called as plain jnp (Mosaic's interpret mode is too
 slow for that kernel on the CPU).  The cases include the identity,
-doubling and P + (-P), as tests/test_pallas_ec.py does.  Tests marked
-`cuda` hold the CUDA kernels against their plain versions and skip where
-torch sees no CUDA device.
+doubling and P + (-P), as tests/test_pallas_ec.py does.  The CUDA
+kernels are held against these plain versions on the card by
+tests/test_torch_card_ec.py, which imports no JAX.
 """
 
 import jax.numpy as jnp
@@ -15,12 +15,13 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_card_support import pairs as _pairs
+from _torch_card_support import soa as _soa
 from _torch_support import (no_compile_cache_writes,  # noqa: F401
                             one_torch_thread, stand_in_card)
 from reef_tpu.ec import msm as ref_msm
 from reef_tpu.ec import pallas_ec as ref_pe
 from reef_tpu_torch import convert
-from reef_tpu_torch.backend.commitment import PedersenGens
 from reef_tpu_torch.ec import msm, msm_v3
 from reef_tpu_torch.ec import padd as PD
 from reef_tpu_torch.ec.padd import (limb_join, limb_split, padd_soa,
@@ -33,23 +34,6 @@ CURVES = {
 }
 
 _ref_padd = ref_msm.padd        # eager: its jit compiles for ~35 s here
-
-
-def _pairs(cv, seed: int):
-    """Random pairs plus the identity, doubling and P + (-P) cases."""
-    rng = np.random.default_rng(seed)
-    mults = [int(v) for v in rng.integers(1, 1 << 40, size=8)]
-    pts = [cv.mul(k, cv.gen) for k in mults]
-    g5 = cv.mul(5, cv.gen)
-    pairs = list(zip(pts[:4], pts[4:]))
-    pairs += [(None, cv.gen), (g5, g5), (g5, cv.neg(g5)), (None, None),
-              (cv.gen, None)]
-    return pairs
-
-
-def _soa(ck, pts) -> torch.Tensor:
-    """Affine host points -> (3, 8, n) int32 Montgomery projective."""
-    return torch.from_numpy(ck.to_proj(pts)).permute(1, 2, 0).contiguous()
 
 
 def _to_ref(t: torch.Tensor) -> np.ndarray:
@@ -151,40 +135,6 @@ def test_tree_levels_plain_sums_sorted_points(name):
                     total = cv.add(total, pt)
                 node = ck.to_affine(out[:, :, w, offs[b] + k])
                 assert node == total, (w, b, k)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(CURVES))
-def test_kernels_match_plain_on_card(name):
-    """K1 (csrc/padd.cu) and K2 (csrc/msm_tree.cu, at cap 4096 and 16384)
-    on the card, exactly against their plain versions, each launch
-    counted."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    ck = CURVES[name][0]()
-    cv = ck.curve
-    dev = torch.device("cuda")
-    pairs = _pairs(cv, 14) * 300
-    P = _soa(ck, [a for a, _ in pairs]).to(dev)
-    Q = _soa(ck, [b for _, b in pairs]).to(dev)
-    before = cudabuild.launch_counts()["padd"]
-    got = padd_soa(ck, P, Q)
-    assert torch.equal(got.cpu(), padd_soa_plain(ck, P.cpu(), Q.cpu()))
-    assert cudabuild.launch_counts()["padd"] == before + 1
-    g = torch.Generator().manual_seed(15)
-    for cap in (4096, 16384):
-        W = 32
-        order = torch.stack([torch.randperm(cap, generator=g)
-                             for _ in range(W)])
-        base = _soa(ck, PedersenGens(cv, b"test_torch_ec/tree", cap).G)
-        placed = base[:2][:, :, order].contiguous().to(dev)
-        before = cudabuild.launch_counts()["msm_tree"]
-        tree = msm_v3.tree_levels(ck, placed)
-        torch.cuda.synchronize()
-        assert torch.equal(tree[..., :cap - 1],
-                           msm_v3.tree_levels_plain(ck, placed)[..., :cap - 1])
-        assert cudabuild.launch_counts()["msm_tree"] == \
-            before + len(msm_v3.tree_plan(cap))
 
 
 @pytest.mark.parametrize("B", [1, PD.THREAD_MIN_B - 1, PD.THREAD_MIN_B,
@@ -414,36 +364,3 @@ def test_padd_reduce_checks_its_inputs():
         PD.padd_reduce(ck, torch.zeros((3, 8, 1, 512, 1), dtype=torch.int32))
     with pytest.raises(ValueError):                      # coordinate rows
         PD.padd_reduce(ck, X.transpose(0, 2).contiguous().transpose(0, 2))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(CURVES))
-def test_spread_and_reduce_match_plain_on_card(name):
-    """K1's SPREAD launch at a few batches and its reduce at the MSM's two
-    shapes (the Fenwick levels with acc, the digits) on the card, exactly
-    against the plain versions, each launch counted."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    ck = CURVES[name][0]()
-    dev = torch.device("cuda")
-    pairs = _pairs(ck.curve, 19) * 8
-    P = _soa(ck, [a for a, _ in pairs])
-    Q = _soa(ck, [b for _, b in pairs])
-    for B in (1, 2, 37):
-        p, q = P[..., :B].contiguous(), Q[..., :B].contiguous()
-        before = cudabuild.launch_counts()["padd_spread"]
-        got = padd_soa(ck, p.to(dev), q.to(dev), path=PD.SPREAD)
-        assert torch.equal(got.cpu(), padd_soa_plain(ck, p, q))
-        assert cudabuild.launch_counts()["padd_spread"] == before + 1
-    base = padd_soa_plain(ck, P, Q)
-    for A, L, C, with_acc in ((32, 16, 256, True), (32, 256, 1, False)):
-        idx = torch.arange(A * L * C) % base.shape[2]
-        X = base[:, :, idx].reshape(3, 8, A, L, C).contiguous()
-        acc = (base[:, :, idx[:A * C].flip(0)].reshape(3, 8, A, C)
-               .contiguous() if with_acc else None)
-        before = cudabuild.launch_counts()["padd_reduce"]
-        got = PD.padd_reduce(ck, X.to(dev),
-                             None if acc is None else acc.to(dev))
-        torch.cuda.synchronize()
-        assert cudabuild.launch_counts()["padd_reduce"] == before + 1
-        assert torch.equal(got.cpu(), PD.padd_reduce_plain(ck, X, acc))

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_card_support import mxu_range_cols
 from _torch_support import (no_compile_cache_writes,  # noqa: F401
                             one_torch_thread)
 from reef_tpu.ops import limb as ref_limb
@@ -114,28 +115,6 @@ def test_redc_cols_matches_reference(name):
               for j in range(cols.shape[1])]
     assert [lf.mont(x) for x in lf.decode(got)] == [v * rinv % p
                                                    for v in values]
-
-
-def mxu_range_cols(p: int, n: int, seed: int) -> np.ndarray:
-    """(32, n) int64 columns, each below 2^31, of n values in [pR, 5p^2):
-    the range of the MXU Poseidon's byte-matmul accumulations, where a
-    REDC leaves up to ~2.3p.  Each value's 16-bit limbs, with random
-    amounts moved one column down (column k-1 gains 2^16 x what column k
-    loses), so the columns exceed 16 bits as the matmul's do."""
-    rng = np.random.default_rng(seed)
-    lo, hi = p << 256, 5 * p * p
-    out = np.zeros((32, n), np.int64)
-    for j in range(n):
-        v = lo + int.from_bytes(rng.bytes(64), "little") % (hi - lo)
-        c = [(v >> (16 * k)) & 0xFFFF for k in range(32)]
-        for k in range(31, 0, -1):
-            r = int(rng.integers(0, min(c[k], 1 << 14) + 1))
-            c[k] -= r
-            c[k - 1] += r << 16
-        assert sum(x << (16 * k) for k, x in enumerate(c)) == v
-        out[:, j] = c
-    assert out.max() < 1 << 31
-    return out
 
 
 @pytest.mark.parametrize("name", sorted(FIELDS))

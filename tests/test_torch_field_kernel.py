@@ -4,9 +4,9 @@ against the JAX package.
 On the CPU `mont_mul` and `mont_redc_cols` run their plain versions; the
 reference's Pallas kernels run in interpret mode, as
 tests/test_pallas_field.py runs them.  Every comparison is exact: the
-same Montgomery integers, limb for limb.  The `cuda`-marked test runs K3
-and K4 on a card against the plain versions, and the MXU Poseidon under
-the hook against K5.
+same Montgomery integers, limb for limb.  K3 and K4 on the card against
+these plain versions, and the MXU Poseidon under the hook against K5,
+are in tests/test_torch_card_field_kernel.py, which imports no JAX.
 """
 
 import jax.numpy as jnp
@@ -14,30 +14,18 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_card_support import elements as _elements
+from _torch_card_support import encode as _encode
+from _torch_card_support import mxu_range_cols
 from _torch_support import (no_compile_cache_writes,  # noqa: F401
                             one_torch_thread)
 from reef_tpu.ops import limb as ref_limb
 from reef_tpu.ops import pallas_field as ref_pf
 from reef_tpu_torch.ops import field_kernel as FK
-from reef_tpu_torch.ops import limb, poseidon_device, poseidon_mxu
+from reef_tpu_torch.ops import limb
 from reef_tpu_torch.utils import cudabuild
-from test_torch_field import mxu_range_cols
 
 FIELDS = {"fp": (limb.FP, ref_limb.FP), "fq": (limb.FQ, ref_limb.FQ)}
-
-
-def _elements(p: int, n: int, seed: int) -> list:
-    """0, 1, p - 1, then random values below p."""
-    rng = np.random.default_rng(seed)
-    vals = [0, 1, p - 1]
-    while len(vals) < n:
-        vals.append(int.from_bytes(rng.bytes(32), "little") % p)
-    return vals
-
-
-def _encode(lf, xs) -> torch.Tensor:
-    """Python ints -> contiguous (16, n) int64 Montgomery rows."""
-    return lf.encode(xs).contiguous()
 
 
 def _ref_rows(t: torch.Tensor) -> np.ndarray:
@@ -125,36 +113,3 @@ def test_enable_disable_reroute_the_plain_ops():
         with FK.enabled(redc=True):
             raise RuntimeError("kernel failed")
     assert limb.mul is base_mul and limb.redc_cols is base_redc
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(FIELDS))
-def test_kernels_match_plain_on_card(name):
-    """K3 and K4 (csrc/mont.cu) on the card, exactly against their plain
-    versions, each launch counted; the MXU Poseidon under the hook
-    against K5."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    lf, _ = FIELDS[name]
-    dev = torch.device("cuda")
-    B = 5000                                # not a multiple of 128
-    a = _encode(lf, _elements(lf.p_int, B, 8))
-    b = _encode(lf, _elements(lf.p_int, B, 9)[::-1])
-    cols = torch.from_numpy(mxu_range_cols(lf.p_int, B, 10))
-    before = cudabuild.launch_counts()
-    got = FK.mont_mul(lf, a.to(dev), b.to(dev))
-    red = FK.mont_redc_cols(lf, cols.to(dev))
-    torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), limb.mul(lf, a, b))
-    assert torch.equal(red.cpu(), limb.redc_cols(lf, cols))
-    after = cudabuild.launch_counts()
-    assert after["mont_mul"] == before["mont_mul"] + 1
-    assert after["mont_redc"] == before["mont_redc"] + 1
-    X = lf.encode32(_elements(lf.p_int, 5 * 4096, 11)).reshape(
-        limb.N32, 4096, 5).permute(2, 0, 1).contiguous().to(dev)
-    with FK.enabled(redc=True):
-        mxu = poseidon_mxu.permute(lf, X)
-    assert torch.equal(mxu, poseidon_device.permute(lf, X))
-    final = cudabuild.launch_counts()
-    assert final["mont_mul"] > after["mont_mul"]
-    assert final["mont_redc"] > after["mont_redc"]

@@ -10,7 +10,10 @@ slow-marked tests (its window kernels take minutes to compile on
 XLA:CPU); the points come from that curve too.  The host prep
 (digits, sort order, boundaries, Fenwick nodes) is numpy in both
 packages and must be equal array for array; the reference's projective points and window combine
-are fed the port's through `convert.points_{from,to}_reference`.
+are fed the port's through `convert.points_{from,to}_reference`.  The
+port's own python curve, the oracle of the v2 MSM on the card
+(tests/test_torch_card_pippenger.py, which imports no JAX), must give
+the reference curve's generators and MSM.
 """
 
 import random
@@ -26,9 +29,9 @@ from reef_tpu.ec import msm_pippenger as ref_mp
 from reef_tpu.ec.pasta import PALLAS, VESTA
 from reef_tpu_torch import convert
 from reef_tpu_torch.ec import msm, msm_pippenger as mp
+from reef_tpu_torch.ec import pasta as port_pasta
 from reef_tpu_torch.ec.padd import msm_pallas
 from reef_tpu_torch.ops import field_kernel, limb
-from reef_tpu_torch.utils import cudabuild
 
 ORDER = PALLAS.order
 
@@ -235,18 +238,14 @@ def test_msm_device_restores_the_callers_hook(monkeypatch):
     assert (limb.mul, limb.redc_cols) == base
 
 
-@pytest.mark.cuda
-def test_msm_device_on_card_launches_k3():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+def test_port_curve_matches_reference():
+    """The port's python curve (ec/pasta.py) derives the reference's
+    generators and computes its MSM, on the card test's label."""
     rng = random.Random(12)
-    ck = msm.pallas_kernels()
     n = 512
-    pts = PALLAS.gens(b"test_torch_pippenger", n)
-    scs = [rng.randrange(ORDER) for _ in range(n)]
-    base = limb.mul
-    before = cudabuild.launch_counts()["mont_mul"]
-    got = mp.msm_device(ck, scs, pts, device="cuda")
-    assert got == PALLAS.msm(scs, pts)
-    assert cudabuild.launch_counts()["mont_mul"] > before
-    assert limb.mul is base
+    pts = port_pasta.PALLAS.gens(b"test_torch_pippenger", n)
+    assert pts == PALLAS.gens(b"test_torch_pippenger", n)
+    scs = _edge_scalars(rng, 24)
+    assert port_pasta.PALLAS.msm(scs, pts[:24]) == PALLAS.msm(scs, pts[:24])
+    assert port_pasta.VESTA.msm(scs[::-1], VESTA.gens(b"t", 24)) == \
+        VESTA.msm(scs[::-1], VESTA.gens(b"t", 24))

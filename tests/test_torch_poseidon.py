@@ -16,9 +16,11 @@ conditional subtracts are held at the row sum's worst case.  The
 reference's own permutation on the CPU is its `lax.scan` path
 (`reef_tpu.ops.poseidon.permute_jit`, as its tests/test_poseidon.py runs
 it): its Pallas kernel in interpret mode, one block of 1024 states at
-the least, is far too slow on the CPU for a test.  Tests marked `cuda` hold both launches
-(csrc/poseidon.cu) against the plain version, edge states included, and
-skip where torch sees no CUDA device.
+the least, is far too slow on the CPU for a test.  Both launches
+(csrc/poseidon.cu) are held against the plain version and the port's
+python permutation, edge states included, on the card by
+tests/test_torch_card_poseidon.py, which imports no JAX; the port's
+python permutation must equal the reference's here.
 """
 
 import jax.numpy as jnp
@@ -26,6 +28,10 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_card_support import edge_states as _edge_states
+from _torch_card_support import from_port as _from_port
+from _torch_card_support import states as _states
+from _torch_card_support import to_port as _to_port
 from _torch_support import (no_compile_cache_writes,  # noqa: F401
                             one_torch_thread)
 from reef_tpu.backend.merkle import MerkleCommitment
@@ -37,6 +43,7 @@ from reef_tpu.ops.poseidon_constants import host_permutation, poseidon_params
 from reef_tpu_torch import convert
 from reef_tpu_torch.backend.merkle import build_tree_device
 from reef_tpu_torch.ops import limb, poseidon, poseidon_device, poseidon_kernel
+from reef_tpu_torch.ops import poseidon_constants as port_constants
 from reef_tpu_torch.ops.poseidon_constants import (FULL_ROUNDS,
                                                    sparse_params)
 from reef_tpu_torch.utils import cudabuild
@@ -44,39 +51,10 @@ from reef_tpu_torch.utils import cudabuild
 FIELDS = {"fq": (limb.FQ, ref_limb.FQ), "fp": (limb.FP, ref_limb.FP)}
 
 
-def _states(lf, t: int, B: int, seed: int):
-    rng = np.random.default_rng(seed)
-    return [[int.from_bytes(rng.bytes(32), "little") % lf.p_int
-             for _ in range(t)] for _ in range(B)]
-
-
-def _to_port(lf, states, device="cpu") -> torch.Tensor:
-    """python-int states -> (t, 8, B) int32."""
-    t = len(states[0])
-    return torch.stack([lf.encode32([s[l] for s in states], device)
-                        for l in range(t)])
-
-
-def _from_port(lf, x: torch.Tensor):
-    cols = [lf.decode32(x[l]) for l in range(x.shape[0])]
-    return [list(s) for s in zip(*cols)]
-
-
 def _words32(words, device="cpu") -> torch.Tensor:
     """python ints taken as raw 32-bit limb words -> (8, n) int32."""
     w = limb._ints_to_words(words, np.uint32).view(np.int32).T.copy()
     return torch.from_numpy(w).to(device)
-
-
-def _edge_states(lf, t: int):
-    """Every lane 0, 1 or p - 1, as values and as raw Montgomery words
-    (word p - 1 is the largest element a lazy row sums), as python-int
-    values."""
-    p = lf.p_int
-    return ([[v] * t for v in (0, 1, p - 1)]
-            + [[lf.unmont(w)] * t for w in (1, p - 1)]
-            + [[(0, 1, p - 1)[(l + k) % 3] for l in range(t)]
-               for k in range(3)])
 
 
 def _sparse_permutation(p: int, state):
@@ -278,36 +256,12 @@ def test_route_picks_one_launch_by_batch_size():
     assert poseidon_kernel.route(1 << 19) == poseidon_kernel.THREAD
 
 
-@pytest.mark.cuda
 @pytest.mark.parametrize("t", [5, 9])
 @pytest.mark.parametrize("name", sorted(FIELDS))
-def test_kernel_matches_plain_on_card(name, t):
-    """Both K5 launches on the card on the edge states, at B = 1, 2, 37
-    and on either side of the crossover, exactly against the plain
-    version and the host permutation, each launch counted; `permute`
-    routes by B."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+def test_port_host_permutation_matches_reference(name, t):
+    """The port's python permutation, the card test's oracle, equals the
+    reference's on the edge states and random ones."""
     lf = FIELDS[name][0]
-    cross = poseidon_kernel.THREAD_MIN_B
-    batches = [_edge_states(lf, t)] + [
-        _states(lf, t, B, seed=t + B) for B in (1, 2, 37, cross - 1, cross)]
-    for states in batches:
-        B = len(states)
-        x = _to_port(lf, states, "cuda")
-        want = poseidon_device.permute_plain(lf, x.cpu())
-        for path in (poseidon_kernel.THREAD, poseidon_kernel.SPREAD):
-            before = cudabuild.launch_counts()
-            got = poseidon_kernel.launch(lf, x, path)
-            torch.cuda.synchronize()
-            after = cudabuild.launch_counts()
-            assert after["poseidon"] == before["poseidon"] + 1
-            assert after["poseidon_spread"] == before["poseidon_spread"] + (
-                path == poseidon_kernel.SPREAD)
-            assert torch.equal(got.cpu(), want), (B, path)
-            assert _from_port(lf, got[:, :, :9]) == [
-                host_permutation(lf.p_int, s) for s in states[:9]]
-        before = cudabuild.launch_counts()["poseidon_spread"]
-        assert torch.equal(poseidon.permute(lf, x).cpu(), want)
-        assert cudabuild.launch_counts()["poseidon_spread"] == before + (
-            B < cross)
+    for s in _edge_states(lf, t) + _states(lf, t, 3, seed=t + 77):
+        assert port_constants.host_permutation(lf.p_int, s) == \
+            host_permutation(lf.p_int, s)

@@ -10,8 +10,8 @@ cache follows REEF_DEVICE_SUMCHECK; and a proof made with the document
 sumcheck forced onto the device route verifies under the JAX package's
 verifier.  The coefficient kernel's three-product form must equal the
 reference's four-product sums, and its launch plan must make one launch
-a round.  Tests marked `cuda` hold the K6 kernels against their plain
-versions and skip where torch sees no CUDA device.
+a round.  The K6 kernels are held against their plain versions on the
+card by tests/test_torch_card_sumcheck.py, which imports no JAX.
 """
 
 import contextlib
@@ -21,6 +21,7 @@ import random
 import pytest
 import torch
 
+from _torch_card_support import rows as _rows
 from _torch_support import (no_compile_cache_writes,  # noqa: F401
                             one_torch_thread, stand_in_card)
 from reef_tpu import cli as ref_cli
@@ -197,11 +198,6 @@ def test_forced_device_sumcheck_e2e_verifies_with_reference(monkeypatch,
                                          argv[:1] + ["--verify"] + argv[1:])
 
 
-def _rows(n, seed):
-    g = torch.Generator().manual_seed(seed)
-    return prover_step.random_elems((n,), g, "cpu")
-
-
 def _three_products(lf, t0, t1, e0, e1):
     """The coefficient kernel's arithmetic in plain limb ops: xsq = sum ts
     es, con = sum t0 e0, x = sum t1 e1 - xsq - con."""
@@ -275,54 +271,3 @@ def test_coeff_plan_is_one_launch_a_round(log_half, monkeypatch,
     K.coeffs(lf, T[:, :half], T[:, half:], T[:, :half], T[:, half:], st)
     assert cudabuild.launch_counts()["sumcheck_coeffs"] == before + 1
     assert calls == [(half, grid, threads, grid > 1, grid > 1, True, 9)]
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("half", [1, 256, 1 << 12])
-def test_kernels_match_plain_on_card(half):
-    """K6's three kernels on the card, exactly against their plain
-    versions, each launch counted."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    lf, dev = limb.FQ, torch.device("cuda")
-    T, E, r = _rows(2 * half, 1), _rows(2 * half, 2), _rows(1, 3)
-    st = _rows(9, 4).T.reshape(9, 8, 1).contiguous()
-    halves = (T[:, :half], T[:, half:], E[:, :half], E[:, half:])
-    dh = [h.to(dev) for h in halves]
-    before = cudabuild.launch_counts()
-    g, s = K.coeffs(lf, *dh, st.to(dev))
-    fk = K.fold(lf, *dh, r.to(dev))
-    ek = K.eq_step(lf, T[:, :half].contiguous().to(dev), r.to(dev), E.to(dev))
-    torch.cuda.synchronize()
-    after = cudabuild.launch_counts()
-    gp, sp = K.coeffs_plain(lf, *halves, st)
-    fp = K.fold_plain(lf, *halves, r)
-    assert torch.equal(g.cpu(), gp) and torch.equal(s.cpu(), sp)
-    assert torch.equal(fk[0].cpu(), fp[0]) and torch.equal(fk[1].cpu(), fp[1])
-    assert torch.equal(ek.cpu(), K.eq_step_plain(lf, T[:, :half], r, E))
-    assert after["sumcheck_coeffs"] == before["sumcheck_coeffs"] + 1
-    assert after["sumcheck_fold"] == before["sumcheck_fold"] + 1
-    assert after["sumcheck_eq"] == before["sumcheck_eq"] + 1
-
-
-@pytest.mark.cuda
-def test_coeffs_match_plain_at_every_round_on_card():
-    """The coefficient launch at every half of a 2^20-entry sumcheck,
-    with and without a sponge state, exactly against the plain version,
-    one launch each."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    lf, dev = limb.FQ, torch.device("cuda")
-    T, E = _rows(1 << 20, 5).to(dev), _rows(1 << 20, 6).to(dev)
-    st = _rows(9, 7).T.reshape(9, 8, 1).contiguous().to(dev)
-    for log_half in range(19, -1, -1):
-        h = 1 << log_half
-        halves = (T[:, :h], T[:, h:2 * h], E[:, :h], E[:, h:2 * h])
-        for state in (st, None):
-            before = cudabuild.launch_counts()["sumcheck_coeffs"]
-            g, s = K.coeffs(lf, *halves, state)
-            torch.cuda.synchronize()
-            assert cudabuild.launch_counts()["sumcheck_coeffs"] == before + 1
-            gp, sp = K.coeffs_plain(lf, *halves, state)
-            assert torch.equal(g, gp)
-            assert (s is None and sp is None) or torch.equal(s, sp)
