@@ -143,6 +143,18 @@ script exits non-zero and prints no result:
           card, in pairs of alternating order (WORKLOAD_WARM), and `python -m reef_tpu_torch.workloads all --serve --size
           1000` in a process of its own (one serve worker on the card for
           all ten workloads), which must exit 0 with every proof verified
+  roles   the party roles in processes of their own
+          (tools/card_pairs.py): ROLES_CASES' `cli --commit`, `--prove` and
+          `--verify` on the card with the routes on `auto`, each role
+          timed: `password`, and the resumed prover (an ascii document,
+          `-b 2`, a checkpoint every four folds; its first prove process
+          is killed as soon as the checkpoint appears, a second one must
+          resume after at least four folds, and its proof must verify).
+          Each prove process must have launched K2 and K1's reduce, the
+          killed one before its checkpoint.  Then
+          the port's `--verify`, through one `cli serve` worker, over every
+          pair of tests/data/card_pairs.json (made on the card and by the
+          JAX package): each must pass
   card_tests  `python -m pytest --noconftest -p no:cacheprovider -m cuda
           tests/test_torch_card_*.py` in a process of its own, which
           imports no JAX: every kernel against its plain version and
@@ -152,8 +164,9 @@ script exits non-zero and prints no result:
 Then the bound of each kernel row at the card's integer rate as one JSON
 line, the card's name and power limit, the kernel table as one JSON line
 (its `launches` are the single-device e2e's, `suite_launches` the
-workload suite's in-process pass, `options_launches`, `reject_launches`
-and `card_tests_launches` those phases'), and as the last line
+workload suite's in-process pass, `options_launches`, `reject_launches`,
+`roles_launches` (its prove processes') and `card_tests_launches` those
+phases'), and as the last line
 {"ok": true,
 "device": {...}}.  Kernel times are
 CUDA events around a run of launches; `device_ms` queues the launches
@@ -315,6 +328,9 @@ OPTIONS = {
 # and hostile compressed points, each of which the verifier must refuse
 REJECT_LEAVES = 16
 REJECT_SEED = 20261017
+# the party roles in processes of their own (tools/card_pairs.py): these
+# cases made again, then every committed pair verified
+ROLES_CASES = ("password", "resume")
 # the card lane of the test suite: the cuda-marked tests, without JAX
 CARD_TESTS = "tests/test_torch_card_*.py"
 CARD_TESTS_TIMEOUT_S = 600
@@ -1886,6 +1902,57 @@ def phase_reject(torch, cmt_path: str, proof_path: str, argv: list) -> dict:
     return launches
 
 
+def phase_roles() -> dict:
+    """The party roles, each in a process of its own on the card, through
+    tools/card_pairs.py: the ROLES_CASES' commit, prove and verify, the
+    resumed prover among them (killed at its first checkpoint, resumed in
+    a new process, verified), each role timed and each prove process held
+    to its launch floors; then the port's `--verify`, through one `cli
+    serve` worker, over every pair of tests/data/card_pairs.json, made on
+    the card and by the JAX package, each of which must pass.  Returns the
+    launches summed over the phase's prove processes."""
+    import importlib.util
+    from reef_tpu_torch import workloads as W
+    from reef_tpu_torch.utils import nativebuild
+    t0 = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "card_pairs", os.path.join(W.ROOT, "tools", "card_pairs.py"))
+    CP = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(CP)
+    total, cases = {}, {}
+    for rec in CP.make(list(ROLES_CASES), reference=False):
+        for k, v in rec["launches"].items():
+            total[k] = total.get(k, 0) + v
+        cases[rec["name"]] = {k: rec.get(k) for k in (
+            "seconds", "launches", "resume", "doc_bytes")}
+    pairs = CP.load()["pairs"]
+    makers = {p["made_by"] for p in pairs}
+    require(makers == set(CP.MAKERS.values()),
+            f"roles: {CP.OUT} holds pairs of {makers}")
+    work = tempfile.mkdtemp(dir=nativebuild.build_dir())
+    verified = {}
+    worker = W.ServeWorker()
+    try:
+        for pair in pairs:
+            key = f"{pair['made_by']}/{pair['name']}"
+            d = os.path.join(work, key.replace("/", "_"))
+            os.mkdir(d)
+            argv = CP.verify_argv(pair, d)
+            t1 = time.perf_counter()
+            resp = worker.request(argv)
+            secs = time.perf_counter() - t1
+            require(bool(resp.get("ok"))
+                    and "Verification PASSED" in resp.get("output", ""),
+                    f"roles: the port's verifier refused {key}: {resp}")
+            verified[key] = secs
+    finally:
+        worker.close()
+        shutil.rmtree(work, ignore_errors=True)
+    emit("roles", t0, cases=cases, pairs_verified=len(verified),
+         verify_s=verified, launches=total)
+    return total
+
+
 def phase_card_tests() -> dict:
     """`python -m pytest --noconftest -p no:cacheprovider -m cuda
     tests/test_torch_card_*.py` in a process of its own (no JAX there):
@@ -2181,6 +2248,9 @@ def main() -> int:
     # ---- workloads: the JAX package's suite through the port's runner -----
     suite = phase_workloads(torch)
 
+    # ---- roles: commit, prove and verify in processes of their own -------
+    roles = phase_roles()
+
     # ---- card_tests: the cuda-marked tests, in a process without JAX -----
     card_tests = phase_card_tests()
 
@@ -2192,6 +2262,7 @@ def main() -> int:
         k["suite_launches"] = suite.get(name, 0)
         k["options_launches"] = options.get(name, 0)
         k["reject_launches"] = reject.get(name, 0)
+        k["roles_launches"] = roles.get(name, 0)
         k["card_tests_launches"] = card_tests.get(name, 0)
         k["per_e2e_ms"] = per_e2e.get(name)
     kernels["poseidon"]["spread_launches"] = launches["poseidon_spread"]

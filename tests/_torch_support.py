@@ -6,6 +6,7 @@ each of its tests.
 """
 
 import contextlib
+import hashlib
 import io
 import os
 import types
@@ -39,6 +40,15 @@ def one_torch_thread():
 
 
 @pytest.fixture
+def device_selection_restored(monkeypatch):
+    """For tests that run the port's CLI, whose `--device` selects the
+    process's engine device: the selection before the test is restored
+    after it."""
+    from reef_tpu_torch.utils import device
+    monkeypatch.setattr(device, "_SELECTED", device._SELECTED)
+
+
+@pytest.fixture
 def stand_in_card(monkeypatch):
     """For launch tests on CPU tensors with a stand-in library: a
     stand-in `torch.cuda.device` that records the device it makes
@@ -66,6 +76,53 @@ def run_cli(main, argv) -> str:
     with contextlib.redirect_stdout(out):
         main(argv)
     return out.getvalue()
+
+
+def verdict(verify, verify_error) -> str:
+    """"accept" or "reject"; an exception other than the package's
+    VerifyError propagates (a crash fails the test)."""
+    try:
+        return "accept" if verify() else "reject"
+    except verify_error:
+        return "reject"
+
+
+def cli_verdict(main, argv, capsys) -> str:
+    """"passed", "failed" (the verifier said no) or "error" (the CLI
+    refused the input with an error line) of one `--verify`; a crash
+    fails the test."""
+    capsys.readouterr()
+    try:
+        out = run_cli(main, argv)
+    except SystemExit as e:
+        assert e.code == 1, e.code
+        return "error" if "error:" in capsys.readouterr().err else "failed"
+    assert "Verification PASSED" in out, out
+    return "passed"
+
+
+def resealed(data: bytes) -> bytes:
+    """An artifact's bytes with their sha256-16 trailer made good
+    again."""
+    body = data[:-16]
+    return body + hashlib.sha256(body).digest()[:16]
+
+
+def repo_module(relpath: str):
+    """A script of the repository (`chip_smoke.py`,
+    `tools/card_pairs.py`), loaded by its path."""
+    import importlib.util
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    name = "_" + os.path.splitext(os.path.basename(relpath))[0]
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(root, relpath))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def pair_id(pair) -> str:
+    return f"{pair['made_by']}-{pair['name']}"
 
 
 def _in_mode(argv, mode: str) -> list:

@@ -31,17 +31,17 @@ VerifyError; any other exception is a crash and fails the test.
 """
 
 import copy
-import hashlib
-import importlib.util
-import os
 import random
 
 import pytest
 import torch
 
+from _torch_support import cli_verdict as _cli_verdict
+from _torch_support import resealed as _resealed
+from _torch_support import verdict as _verdict
 from _torch_support import (fresh_reference_terms,  # noqa: F401
                             no_compile_cache_writes, one_torch_thread,
-                            run_cli)
+                            repo_module, run_cli)
 from reef_tpu import cli as ref_cli
 from reef_tpu import errors as ref_errors
 from reef_tpu.backend import framework as ref_fw
@@ -63,7 +63,6 @@ from reef_tpu_torch.ops import field as F
 from reef_tpu_torch.utils import device
 from reef_tpu_torch.utils import serialize as sz
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REGEX, ALPHABET, DOC, BATCH = ".*b", "ab", "aaaaaaaab", 2
 CODES = [ord(c) for c in DOC]
 POINT_FIELDS = ["U1_W", "U1_E", "U2_W", "U2_E", "u2_W", "T_last"]
@@ -110,15 +109,6 @@ def _host_routes(monkeypatch):
     monkeypatch.setattr(device, "_SELECTED", torch.device("cpu"))
 
 
-def _verdict(verify, verify_error) -> str:
-    """"accept" or "reject"; an exception other than the package's
-    VerifyError propagates (a crash fails the test)."""
-    try:
-        return "accept" if verify() else "reject"
-    except verify_error:
-        return "reject"
-
-
 def port_verdict(s, proofs, commit=None) -> str:
     return _verdict(lambda: FW.run_verifier(
         commit or s.commit, s.safa, proofs, batch_size=BATCH),
@@ -143,17 +133,9 @@ def ref_verdict(s, proofs, commit=None) -> str:
 # the mutation burn
 # ---------------------------------------------------------------------------
 
-def _chip_smoke():
-    """chip_smoke.py, loaded by its path: its `int_leaves` and
-    `with_leaf` mutate the card's proof in phase `reject`."""
-    spec = importlib.util.spec_from_file_location(
-        "_chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-_CS = _chip_smoke()
+# chip_smoke.py's `int_leaves` and `with_leaf` mutate the card's proof in
+# its phase `reject`
+_CS = repo_module("chip_smoke.py")
 int_leaves, with_leaf = _CS.int_leaves, _CS.with_leaf
 
 
@@ -326,12 +308,6 @@ def test_bit_decomposition_alias_as_in_reference():
 # byte-level tampering of the files
 # ---------------------------------------------------------------------------
 
-def _resealed(data: bytes) -> bytes:
-    """`data` with its sha256-16 trailer made good again."""
-    body = data[:-16]
-    return body + hashlib.sha256(body).digest()[:16]
-
-
 def _tampered(data: bytes, seed: int):
     """(label, bytes): FLIPS single-byte flips with the checksum left
     as it is, FLIPS with the checksum made good, and two truncations."""
@@ -383,19 +359,6 @@ def test_tampered_file_refused_by_both(smoke, kind):
                             kind, bad)
         assert port != "accept" and ref != "accept", (kind, label)
         assert port == ref, (kind, label, port, ref)
-
-
-def _cli_verdict(main, argv, capsys) -> str:
-    """"passed", "failed" (the verifier said no) or "error" (the CLI
-    refused the input with an error line); a crash fails the test."""
-    capsys.readouterr()
-    try:
-        out = run_cli(main, argv)
-    except SystemExit as e:
-        assert e.code == 1, e.code
-        return "error" if "error:" in capsys.readouterr().err else "failed"
-    assert "Verification PASSED" in out, out
-    return "passed"
 
 
 @pytest.mark.parametrize("kind", ["cmt", "proof"])

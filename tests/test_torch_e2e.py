@@ -162,6 +162,7 @@ def _port_sources():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "tools", "card_pairs.py")
     # the card lane: its tests and their helper run where no JAX is
     tests = os.path.join(ROOT, "tests")
     card = sorted(n for n in os.listdir(tests)
@@ -176,6 +177,7 @@ def test_port_imports_neither_jax_nor_reef_tpu():
     sources = list(_port_sources())
     assert len(sources) > 40
     assert any(p.endswith("_torch_card_support.py") for p in sources)
+    assert any(p.endswith("card_pairs.py") for p in sources)
     for path in sources:
         with open(path) as fh:
             tree = ast.parse(fh.read(), path)
