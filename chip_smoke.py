@@ -1638,17 +1638,14 @@ def run_serve(torch) -> dict:
 
 
 def metrics_stages(path: str) -> dict:
-    """The eight largest timers of a `--metrics` CSV in seconds, the
-    prover's fold steps (`prove_<i>`) summed as `Prover/prove_folds`.  The
-    solver's timer overlaps the folds (two threads)."""
+    """The eight largest timers of a `--metrics` CSV in seconds (the
+    prover's fold steps are `Prover/fold_step`).  The solver's timer
+    overlaps the folds (two threads)."""
     import csv
     secs = {}
     with open(path, encoding="utf-8", newline="") as fh:
         for kind, comp, test, val, _ in csv.reader(fh):
             if kind == "time":
-                if comp == "Prover" and test.startswith("prove_") \
-                        and test[6:].isdigit():
-                    test = "prove_folds"
                 key = f"{comp}/{test}"
                 secs[key] = secs.get(key, 0.0) + int(val) / 1e6
     return dict(sorted(secs.items(), key=lambda kv: -kv[1])[:8])

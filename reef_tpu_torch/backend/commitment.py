@@ -34,6 +34,7 @@ from typing import List, Optional, Tuple
 from ..ec.pasta import PALLAS, Curve, Point
 from ..ops import field as F
 from ..ops.poseidon import HostSponge, IOPattern
+from ..utils.metrics import count, span
 from .costs import logmn, next_power_of_two
 from .sumcheck import verifier_mle_eval
 from .step_circuit import StepCircuit, hide_pattern
@@ -347,7 +348,10 @@ class PedersenGens:
         if self._device_basis is None:
             from ..ec.msm import kernels_for
             from ..ec.msm_v3 import DeviceBasisV3
-            self._device_basis = DeviceBasisV3(kernels_for(self.cv), self.G)
+            count("MSM", "basis_upload")
+            with span("MSM", "basis_upload"):
+                self._device_basis = DeviceBasisV3(kernels_for(self.cv),
+                                                   self.G)
         return self._device_basis
 
     def sharded_G(self, mesh=None):
@@ -358,8 +362,10 @@ class PedersenGens:
             mesh = process_mesh()
         if self._sharded_basis is None or self._sharded_basis.mesh != mesh:
             from ..ec.msm import kernels_for
-            self._sharded_basis = ShardedBasis(kernels_for(self.cv), self.G,
-                                               mesh)
+            count("MSM", "basis_upload")
+            with span("MSM", "basis_upload"):
+                self._sharded_basis = ShardedBasis(kernels_for(self.cv),
+                                                   self.G, mesh)
         return self._sharded_basis
 
     def _msm_device_route(self, values: List[int]) -> Point:
@@ -716,9 +722,11 @@ def commit_doc(udoc: List[int], seed: Optional[int] = None) -> NLDocCommitment:
     else:
         blinds = None
         salt = secrets.randbelow(f.p)
-    commit, blinds = pc.commit(coeffs, blinds)
-    return NLDocCommitment(n_vars, commit, _commit_hash(commit.row_commits),
-                           salt, coeffs, blinds)
+    with span("CommitmentGen", "rows"):
+        commit, blinds = pc.commit(coeffs, blinds)
+    with span("CommitmentGen", "row_hash"):
+        row_hash = _commit_hash(commit.row_commits)
+    return NLDocCommitment(n_vars, commit, row_hash, salt, coeffs, blinds)
 
 
 def adjust_running_q(dc_q_len: int, q: List[int],

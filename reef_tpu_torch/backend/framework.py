@@ -33,6 +33,7 @@ from typing import Dict, List, Optional, Tuple
 from ..frontend.safa import SAFA
 from ..ops import field as F
 from ..ops.poseidon import HostSponge, IOPattern
+from ..utils.metrics import count, span
 from . import commitment as CM
 from .commitment import (ConsistencyProof, NLDocCommitment, SigmaEvalProof,
                          Transcript, commit_doc)
@@ -168,7 +169,8 @@ def run_committer(doc_codes: List[int], ab_codes: List[int], merkle: bool,
                   seed: Optional[int] = None
                   ) -> Tuple[ReefCommitment, Optional[NLDocCommitment]]:
     """Returns (public commitment, prover-secret commitment state)."""
-    udoc = doc_transform(ab_codes, doc_codes)
+    with span("CommitmentGen", "doc_transform"):
+        udoc = doc_transform(ab_codes, doc_codes)
     if merkle:
         mc = MerkleCommitment(udoc)
         return (ReefCommitment(None, mc.commitment, len(doc_codes),
@@ -199,13 +201,17 @@ def pub_setup(safa: SAFA, commit: ReefCommitment, batch_size: int,
             proj, hybrid, merkle)
     base_tt = _TT_CACHE.get(tkey)
     if base_tt is None:
-        tt = TransitionTable(safa, udoc, commit.udoc_len,
-                             commit.orig_doc_len, batch_size=batch_size,
-                             projection=proj, hybrid=hybrid, merkle=merkle)
+        count("Compiler", "table_cache_miss")
+        with span("Compiler", "table"):
+            tt = TransitionTable(safa, udoc, commit.udoc_len,
+                                 commit.orig_doc_len, batch_size=batch_size,
+                                 projection=proj, hybrid=hybrid,
+                                 merkle=merkle)
         if len(_TT_CACHE) > 8:
             _TT_CACHE.clear()
         _TT_CACHE[tkey] = tt
     else:
+        count("Compiler", "table_cache_hit")
         import copy
         tt = copy.copy(base_tt)
         tt.udoc = udoc
@@ -230,16 +236,19 @@ def pub_setup(safa: SAFA, commit: ReefCommitment, batch_size: int,
            mc.height if mc else None, merkle, hybrid)
     cached = _CIRCUIT_CACHE.get(key)
     if cached is None:
-        circuit = StepCircuit(tt, commit.doc_commit_hash(),
-                              merkle_commitment=mc)
-        aug = AugmentedPrimary(circuit)
-        shape = R1CSShape(aug.compiled, aug.io_names)
-        wc = VectorCommitter(shape.w_pad)
-        ec = VectorCommitter(shape.n_cons)
+        count("Compiler", "circuit_cache_miss")
+        with span("Compiler", "circuit"):
+            circuit = StepCircuit(tt, commit.doc_commit_hash(),
+                                  merkle_commitment=mc)
+            aug = AugmentedPrimary(circuit)
+            shape = R1CSShape(aug.compiled, aug.io_names)
+            wc = VectorCommitter(shape.w_pad)
+            ec = VectorCommitter(shape.n_cons)
         if len(_CIRCUIT_CACHE) > 8:
             _CIRCUIT_CACHE.clear()
         _CIRCUIT_CACHE[key] = (circuit, aug, shape, wc, ec)
     else:
+        count("Compiler", "circuit_cache_hit")
         circuit, aug, shape, wc, ec = cached
         # rebind the fresh table (carries udoc for witness generation)
         circuit.tt = tt
@@ -318,7 +327,8 @@ def run_prover(commit: ReefCommitment, dc_secret: Optional[NLDocCommitment],
     from ..utils import serialize as SZ
     from .ivc import RecursiveSNARK
     mt = metrics or Metrics()
-    udoc = doc_transform(safa.ab, doc_codes)
+    with span("Prover", "doc_transform"):
+        udoc = doc_transform(safa.ab, doc_codes)
     mt.tic("Compiler", "r1cs_init")
     tt, circuit, aug, shape, wc, ec, mc = pub_setup(
         safa, commit, batch_size, projections, hybrid, merkle, udoc)
@@ -328,7 +338,8 @@ def run_prover(commit: ReefCommitment, dc_secret: Optional[NLDocCommitment],
     salt = commit.hash_salt()
     z0 = circuit.z0(salt, tt.table[0])
     rs = RecursiveSNARK(aug, shape, wc, ec, z0)
-    _prewarm_device_msm([wc, ec])
+    with span("Prover", "prewarm"):
+        _prewarm_device_msm([wc, ec])
     skip_folds = 0
     if checkpoint_path and _os.path.exists(checkpoint_path):
         rs.restore(SZ.load(checkpoint_path, kind="ckpt"))
@@ -355,9 +366,9 @@ def run_prover(commit: ReefCommitment, dc_secret: Optional[NLDocCommitment],
                 return
             try:
                 if i >= skip_folds:         # pre-checkpoint: already folded
-                    mt.tic("Prover", f"prove_{i}")
-                    rs.prove_step(wits)
-                    mt.stop("Prover", f"prove_{i}")
+                    with span("Prover", "fold_step"):
+                        rs.prove_step(wits)
+                    count("Prover", "fold_steps")
                     if checkpoint_path and rs.i % checkpoint_every == 0:
                         SZ.save(checkpoint_path, "ckpt", rs.checkpoint())
             except Exception as e:  # surface in the main thread
@@ -375,15 +386,20 @@ def run_prover(commit: ReefCommitment, dc_secret: Optional[NLDocCommitment],
 
     worker = threading.Thread(target=fold_worker, daemon=True)
     worker.start()
-    for wits, res in solve_and_batch(tt, circuit, doc_codes,
-                                     commit.doc_commit_hash(), salt,
-                                     merkle_commitment=mc):
-        if fold_err:
+    batches = solve_and_batch(tt, circuit, doc_codes,
+                              commit.doc_commit_hash(), salt,
+                              merkle_commitment=mc)
+    while True:
+        with span("Solver", "solve"):
+            batch = next(batches, None)
+        if batch is None or fold_err:
             break
-        chan.put(wits)
-        last_res = res
-    chan.put(None)     # always: the worker drains to the sentinel on error
-    worker.join()
+        wits, last_res = batch
+        with span("Solver", "wait_fold"):
+            chan.put(wits)
+    with span("Solver", "wait_fold"):
+        chan.put(None)  # always: the worker drains to the sentinel on error
+        worker.join()
     if fold_err:
         raise fold_err[0]
     mt.stop("Solver", "fa_solver+wit")
@@ -428,7 +444,8 @@ def run_prover(commit: ReefCommitment, dc_secret: Optional[NLDocCommitment],
     mt.stop("Prover", "compressed_snark")
 
     if cth is not None:
-        cth.join()
+        with span("Prover", "wait_consistency"):
+            cth.join()
         if consist_box[2] is not None:
             raise consist_box[2]
     consist, cap = consist_box[0], consist_box[1]
@@ -488,7 +505,8 @@ def _run_verifier(commit: ReefCommitment, safa: SAFA, proofs: Proofs,
 
     def _ivc_check():
         try:
-            ivc_res[0] = IVC.verify(proofs.ivc, shape, wc, ec, z0)
+            with span("Verifier", "ivc_check"):
+                ivc_res[0] = IVC.verify(proofs.ivc, shape, wc, ec, z0)
         except Exception:
             ivc_res[0] = False
 
@@ -568,8 +586,10 @@ def _run_verifier(commit: ReefCommitment, safa: SAFA, proofs: Proofs,
     # check started above
     mt.tic("Verifier", "consistency_verification")
     try:
-        rest_ok = _layout_and_consistency()
+        with span("Verifier", "consistency"):
+            rest_ok = _layout_and_consistency()
     finally:
-        ivc_th.join()
+        with span("Verifier", "wait_ivc"):
+            ivc_th.join()
     mt.stop("Verifier", "consistency_verification")
     return rest_ok and ivc_res[0]

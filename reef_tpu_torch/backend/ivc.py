@@ -35,6 +35,7 @@ from ..ec.pasta import PALLAS, VESTA, Curve, Point
 from ..errors import VerifyError
 from ..ops import field as F
 from ..ops.poseidon import HostSponge, IOPattern
+from ..utils.metrics import span
 from . import nonnative as NN
 from .ivc_circuit import (CHAL_BITS, HASH_BITS, IVC_RATE, AugmentedPrimary,
                           SecondaryCircuit)
@@ -425,7 +426,8 @@ class RecursiveSNARK(_CkptMixin):
         th.start()
         _run(0, (self.shape1, self.wc1, self.ec1, self.acc1.U,
                  self.acc1.Wit))
-        th.join()
+        with span("Prover", "wait_spartan2"):
+            th.join()
         if err:
             raise err[0]
         sp1, sp2 = res

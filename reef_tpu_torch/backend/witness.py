@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 from ..ops import field as F
+from ..utils.metrics import count
 from .step_circuit import StepCircuit
 from .sumcheck import nlookup_prove
 from .table import TransitionTable, trace_preprocessing
@@ -301,7 +302,9 @@ class WitnessGenerator:
             self._dev_caches = {}
         key = (tag, len(table))
         if key in self._dev_caches:
+            count("Solver", "device_cache_hit")
             return self._dev_caches[key]
+        count("Solver", "device_cache_miss")
         cache = None
         if mode == "1" or (mode == "auto"
                            and len(table) >= DEVICE_SUMCHECK_MIN_N):

@@ -13,12 +13,45 @@ routes (REEF_DEVICE_MSM); without a CUDA device, only --device cpu runs.
 Alphabets: ascii (0..128), utf8, dna (ACGT); transforms --alpha-numeric,
 --ignore-whitespace, --case-insensitive (config.rs:291-420).
 Artifacts: <doc>.cmt (public), <doc>.cmtkey (prover secret blind seed),
-reg_<re>.proof.  --metrics FILE appends CSV rows in the reference's schema.
+reg_<re>.proof.
+
+--metrics FILE appends CSV rows in the reference's schema,
+[type, component, name, value, unit], and records the request's spans
+(utils/metrics.py `last_spans`).  `time` rows (microseconds) hold the
+stage timers and the spans, each name summed over its spans on every
+thread (the folds, the second Spartan proof, the consistency proof and
+the IVC check run on threads of their own, so a name can sum to more
+than the wall of the stage around it):
+
+  Host         load, save (artifacts), gc (the collector, any thread)
+  CommitmentGen generation; doc_transform, rows (Hyrax row MSMs),
+               row_hash
+  Compiler     regex_normalization+fa_builder; r1cs_init (pub_setup),
+               table, circuit (their cache misses)
+  Solver       fa_solver+wit (solver and folds); solve (each batch on
+               the request thread), wait_fold (blocked on the fold
+               worker's queue and join)
+  Prover       doc_transform, prewarm, fold_step (the fold worker),
+               compressed_snark, spartan.sumcheck1, spartan.sumcheck2,
+               spartan.open (each Spartan proof, the CAP's too),
+               wait_spartan2, consistency_proof, wait_consistency
+  MSM          basis_upload, and the device MSM's scalars, upload,
+               kernels, combine (the read-back, with the wait for the
+               kernels)
+  Verifier     setup, snark_verification (starts the IVC check's
+               thread), ivc_check, consistency_verification:
+               consistency, wait_ivc
+
+`count` rows (unit `events`): Host gc_collections; Compiler
+table_cache_hit/_miss, circuit_cache_hit/_miss; Solver
+device_cache_hit/_miss; Prover fold_steps; MSM basis_upload.
+`constraints` and `space` rows as in the reference.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import os
 import sys
@@ -27,7 +60,7 @@ from typing import List, Optional
 
 from .backend import framework as FW
 from .frontend.safa import SAFA, from_regex
-from .utils import device, serialize
+from .utils import device, metrics, serialize
 from .utils.metrics import Metrics
 
 
@@ -222,27 +255,39 @@ def _main(argv=None):
 
     print("reef_tpu_torch")
     ab = build_alphabet(args)
-    cmt_path, key_path, proof_path = artifact_names(args)
     mt = Metrics()
+    with (metrics.recording(mt) if args.metrics
+          else contextlib.nullcontext()):
+        _roles(args, ab, mt)
+    if args.metrics:
+        mt.write_csv(args.metrics)
+
+
+def _roles(args, ab: Optional[List[int]], mt: Metrics):
+    """The roles `args` asks for, in order: commit, prove, verify."""
+    cmt_path, key_path, proof_path = artifact_names(args)
 
     if args.commit or args.e2e:
-        doc = read_doc(args.doc, args, ab)
+        with metrics.span("Host", "load"):
+            doc = read_doc(args.doc, args, ab)
         mt.tic("CommitmentGen", "generation")
         commit, secret = FW.run_committer(doc, ab, args.merkle,
                                           seed=args.seed)
         mt.stop("CommitmentGen", "generation")
-        n = serialize.save(cmt_path, "cmt", commit)
+        with metrics.span("Host", "save"):
+            n = serialize.save(cmt_path, "cmt", commit)
+            if secret is not None:
+                serialize.save(key_path, "cmtkey", secret)
         mt.space("CommitmentGen", "commitment", n)
-        if secret is not None:
-            serialize.save(key_path, "cmtkey", secret)
         print(f"wrote {cmt_path}")
 
     if args.prove or args.e2e:
         assert args.re, "Regular Expression not found"
-        doc = read_doc(args.doc, args, ab)
-        commit = serialize.load(cmt_path, "cmt")
-        secret = serialize.load(key_path, "cmtkey") if not args.merkle \
-            else None
+        with metrics.span("Host", "load"):
+            doc = read_doc(args.doc, args, ab)
+            commit = serialize.load(cmt_path, "cmt")
+            secret = serialize.load(key_path, "cmtkey") if not args.merkle \
+                else None
         mt.tic("Compiler", "regex_normalization+fa_builder")
         safa = build_safa(args, ab)
         mt.stop("Compiler", "regex_normalization+fa_builder")
@@ -252,14 +297,16 @@ def _main(argv=None):
                                hybrid=args.hybrid, merkle=args.merkle,
                                metrics=mt, checkpoint_path=args.checkpoint,
                                checkpoint_every=args.checkpoint_every)
-        n = serialize.save(proof_path, "proof", proofs)
+        with metrics.span("Host", "save"):
+            n = serialize.save(proof_path, "proof", proofs)
         mt.space("Prover", "snark_size", n)
         print(f"wrote {proof_path}")
 
     if args.verify or args.e2e:
         assert args.re, "Regular Expression not found"
-        commit = serialize.load(cmt_path, "cmt")
-        proofs = serialize.load(proof_path, "proof")
+        with metrics.span("Host", "load"):
+            commit = serialize.load(cmt_path, "cmt")
+            proofs = serialize.load(proof_path, "proof")
         safa = build_safa(args, ab)
         ok = FW.run_verifier(commit, safa, proofs,
                              batch_size=args.batch_size,
@@ -269,10 +316,6 @@ def _main(argv=None):
         print("Verification PASSED" if ok else "Verification FAILED")
         if not ok:
             sys.exit(1)
-
-    if args.metrics:
-        mt.write_csv(args.metrics)
-
 
 if __name__ == "__main__":
     main()

@@ -38,6 +38,7 @@ import torch
 from ..ops import limb
 from ..utils import cudabuild
 from ..utils.device import resolve
+from ..utils.metrics import span
 from .msm import CurveKernels
 from .padd import limb_join, limb_split, padd_reduce, padd_soa
 from .msm import padd as _padd16, padd_affine as _padd_affine16
@@ -298,12 +299,15 @@ def upload_scalars(basis: DeviceBasisV3, rows) -> torch.Tensor:
     """(R, n2, 32) uint8 little-endian bytes of each row's scalars on the
     basis's device; a row shorter than the basis is padded with zeros."""
     ck = basis.ck
-    scb = np.zeros((len(rows), basis.n2, 32), np.uint8)
-    for r, row in enumerate(rows):
-        if len(row) > basis.n2:
-            raise ValueError(f"{len(row)} scalars for a basis of {basis.n}")
-        scb[r, :len(row)] = scalars_to_bytes(list(row), ck.curve.order)
-    return torch.from_numpy(scb).to(basis.device)
+    with span("MSM", "scalars"):
+        scb = np.zeros((len(rows), basis.n2, 32), np.uint8)
+        for r, row in enumerate(rows):
+            if len(row) > basis.n2:
+                raise ValueError(f"{len(row)} scalars for a basis of "
+                                 f"{basis.n}")
+            scb[r, :len(row)] = scalars_to_bytes(list(row), ck.curve.order)
+    with span("MSM", "upload"):
+        return torch.from_numpy(scb).to(basis.device)
 
 
 def msm_device_v3(ck: CurveKernels, scalars: List[int], points) -> Point:
@@ -314,7 +318,10 @@ def msm_device_v3(ck: CurveKernels, scalars: List[int], points) -> Point:
     if not isinstance(points, DeviceBasisV3):
         points = DeviceBasisV3(ck, points)
     scb = upload_scalars(points, [scalars])[0]
-    return combine_windows(ck, msm_windows(ck, points, scb))
+    with span("MSM", "kernels"):
+        accs = msm_windows(ck, points, scb)
+    with span("MSM", "combine"):
+        return combine_windows(ck, accs)
 
 
 def msm_device_v3_rows(ck: CurveKernels, rows_scalars,
@@ -329,13 +336,15 @@ def msm_device_v3_rows(ck: CurveKernels, rows_scalars,
     if R < 1:
         raise ValueError("no rows")
     scb = upload_scalars(points, rows_scalars)
-    accs = torch.stack([msm_windows(ck, points, scb[r]) for r in range(R)],
-                       dim=-1)                              # (3, 8, W, R)
-    acc = ck.ident_t(points.device)[:, :, None].expand(
-        3, limb.N32, R).contiguous()
-    for w in reversed(range(N_WINDOWS)):
-        for _ in range(WINDOW_C):
-            acc = padd_soa(ck, acc, acc)
-        acc = padd_soa(ck, acc, accs[:, :, w].contiguous())
-    return ck.to_affine(acc.permute(2, 0, 1))
+    with span("MSM", "kernels"):
+        accs = torch.stack([msm_windows(ck, points, scb[r])
+                            for r in range(R)], dim=-1)     # (3, 8, W, R)
+    with span("MSM", "combine"):
+        acc = ck.ident_t(points.device)[:, :, None].expand(
+            3, limb.N32, R).contiguous()
+        for w in reversed(range(N_WINDOWS)):
+            for _ in range(WINDOW_C):
+                acc = padd_soa(ck, acc, acc)
+            acc = padd_soa(ck, acc, accs[:, :, w].contiguous())
+        return ck.to_affine(acc.permute(2, 0, 1))
 
