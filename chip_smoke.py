@@ -80,6 +80,15 @@ script exits non-zero and prints no result:
   msm_aux the binary msm.msm_device (its point adds on K1) at n = 256 and
           msm_pallas (K1) at n = 2048 against the native host MSM;
           exact, timed, K1 must have launched (both are off-path)
+  ipa     the IPA round kernels (csrc/ipa.cu) at the compressed SNARK's
+          two proofs (Pallas 2^16, Vesta 2^14) over the resident
+          `reef/g/pv` basis: the expanded scalars, the cross dots and
+          the fold of the first, a middle (n = 2^9) and the last round
+          against their plain versions on the card, and the window
+          combine on the window sums msm_v3.msm_windows gives for the
+          first and the last round's own scalars; exact, one launch
+          each.  Each kernel's device time at the first round, beside
+          its bound
   mesh    the multi-device prover (reef_tpu_torch/parallel/mesh.py) on a
           mesh of every CUDA device where torch sees more than one, else
           of eight shards on the one card: the sharded MSM at n = 2^16 on
@@ -96,8 +105,10 @@ script exits non-zero and prints no result:
   e2e     `cli dna --e2e` in-process with REEF_DEVICE_MSM=1 and
           REEF_DEVICE_SUMCHECK=auto on the 1 MB document of the
           reference's dna.sh workload (seed 42); must prove and verify,
-          and every kernel of its path (K1, K2, K5, K6; K3 and K4 run
-          off it, in their own phases) must have launched (the
+          and every kernel of its path (K1, K2, K5, K6, the IPA
+          rounds'; K3 and K4 run off it, in their own phases) must have
+          launched (the IPA rounds of the compressed SNARK's two proofs
+          on the card, each of their four kernels once a round; the
           2^20-entry document sumcheck runs on the card: K5's
           block-per-state launch once a round, counted apart as
           `poseidon_spread`; K1 only in its halving reduces, one a
@@ -110,7 +121,8 @@ script exits non-zero and prints no result:
           run on the mesh phase's devices as the process mesh: it must
           prove and verify, sharded_msm and the sharded sumcheck rounds
           must each have run, and K1, K2, K5 and K6 must have launched in
-          it (its counts, set to 0 just before it, are `mesh_launches`)
+          it (its counts, set to 0 just before it, are `mesh_launches`;
+          a mesh keeps the IPA rounds on the host)
   reject  the cold e2e run's own .cmt/.proof pair (made with K1, K2, K5's
           block-per-state launch and K6 on the card), read back with
           serialize.load: it must verify, and REJECT_LEAVES seeded int
@@ -281,10 +293,17 @@ AUX_BINARY_N, AUX_PALLAS_N = 256, 2048
 MESH_MSM_N = {"pallas": 1 << 16, "vesta": 1 << 14}
 MESH_SUMCHECK_N = 1 << 20
 MESH_STEP_PTS = 2
-# the e2e's kernels: K1, K2, K5 and K6 (K3 and K4 run off its path)
-E2E_KERNELS = ("padd", "padd_reduce", "msm_tree", "poseidon",
-               "poseidon_spread",
-               "sumcheck_coeffs", "sumcheck_fold", "sumcheck_eq")
+# the e2e's kernels: K1, K2, K5, K6 and the IPA rounds' (K3 and K4 run
+# off its path; a mesh keeps the IPA rounds on the host)
+IPA_KERNELS = ("ipa_scalars", "ipa_dots", "ipa_combine", "ipa_fold")
+MESH_E2E_KERNELS = ("padd", "padd_reduce", "msm_tree", "poseidon",
+                    "poseidon_spread",
+                    "sumcheck_coeffs", "sumcheck_fold", "sumcheck_eq")
+E2E_KERNELS = MESH_E2E_KERNELS + IPA_KERNELS
+# the IPA phase: the compressed SNARK's two proofs (curve, log2 n), and
+# the middle round checked
+IPA_MAIN = (("pallas", 16), ("vesta", 14))
+IPA_MID_N = 1 << 9
 # the workload suite (reef_tpu_torch.workloads): each workload's size on
 # the card (BASELINE.json configs 4-5 at 100 KB, dkim at the reference
 # script's 1024; password and pihole ignore it), the device MSMs two of them
@@ -1404,6 +1423,121 @@ def phase_msm_aux(torch, dev, rnd) -> None:
     emit("msm_aux", t0, **res, k1_spread_launches=spread)
 
 
+def dot_sums(sf, part) -> list:
+    """The two cross dots of (2, 8, blocks) int32 partials, ints mod p."""
+    from reef_tpu_torch.ops import limb
+    words = part.cpu().permute(0, 2, 1).reshape(-1, limb.N32).numpy()
+    ints = limb._words_to_ints(words, 32)
+    nb = part.shape[2]
+    return [sum(ints[k * nb:(k + 1) * nb]) % sf.p_int for k in (0, 1)]
+
+
+def phase_ipa(torch, dev, rnd) -> dict:
+    """The IPA round kernels against their plain versions on the card;
+    returns their kernel-table rows (at Pallas 2^16, with Vesta 2^14's
+    time beside)."""
+    from reef_tpu_torch.backend.commitment import PedersenGens
+    from reef_tpu_torch.ec import ipa_device as D
+    from reef_tpu_torch.ec.msm import kernels_for
+    from reef_tpu_torch.ec.msm_v3 import msm_windows
+    from reef_tpu_torch.ec.pasta import PALLAS, VESTA
+    from reef_tpu_torch.utils import cudabuild
+    t0 = time.perf_counter()
+    curves = {"pallas": PALLAS, "vesta": VESTA}
+    rows, res = {}, {}
+    for cname, log in IPA_MAIN:
+        cv = curves[cname]
+        sf, ck = D.scalar_field(cv), kernels_for(cv)
+        n_orig = 1 << log
+        basis = PedersenGens(cv, b"reef/g/pv", n_orig).device_G()
+        p = sf.p_int
+        w, R, coeff = (D._table([rnd.randrange(p) for _ in range(n_orig)],
+                                p, dev) for _ in range(3))
+        launches = {k: cudabuild.launch_counts()[k] for k in IPA_KERNELS}
+        errs = dict.fromkeys(IPA_KERNELS, 0)
+        for n in (n_orig, IPA_MID_N, 2):
+            sk = torch.zeros((basis.n2, 64), dtype=torch.uint8, device=dev)
+            sp = torch.zeros_like(sk)
+            D.scalars(sf, w, coeff, n, sk)
+            D.scalars_plain(sf, w, coeff, n, sp)
+            pk = D.dots(sf, w, R, n // 2)
+            pp = D.dots_plain(sf, w, R, n // 2)
+            torch.cuda.synchronize()
+            errs["ipa_scalars"] = max(errs["ipa_scalars"],
+                                      max_err(sk.int(), sp.int()))
+            # the kernel's partials (one a block) and the plain one
+            errs["ipa_dots"] = max(errs["ipa_dots"], int(
+                dot_sums(sf, pk) != dot_sums(sf, pp)))
+            if n != IPA_MID_N:
+                accs = msm_windows(ck, basis, sk)
+                got = D.combine(ck, sf, accs, D.ROWS, pk)
+                want = D.combine_plain(ck, sf, accs, D.ROWS, pk)
+                errs["ipa_combine"] = max(errs["ipa_combine"],
+                                          max_err(got, want))
+            x = rnd.randrange(1, p)
+            xm, xim = sf.mont(x), sf.mont(pow(x, -1, p))
+            wp, Rp, cp = w.clone(), R.clone(), coeff.clone()
+            D.fold_plain(sf, wp, Rp, cp, n, xm, xim)
+            D.fold(sf, w, R, coeff, n, xm, xim)
+            torch.cuda.synchronize()
+            errs["ipa_fold"] = max(errs["ipa_fold"], max_err(w, wp),
+                                   max_err(R, Rp), max_err(coeff, cp))
+        made = {k: cudabuild.launch_counts()[k] - launches[k]
+                for k in IPA_KERNELS}
+        require(all(v == 0 for v in errs.values()),
+                f"ipa {cname} 2^{log}: kernel != plain: {errs}")
+        require(made == {"ipa_scalars": 3, "ipa_dots": 3,
+                         "ipa_combine": 2, "ipa_fold": 3},
+                f"ipa {cname} 2^{log}: launches {made}")
+        # each kernel at the first round, timed
+        n, half = n_orig, n_orig // 2
+        sk = torch.zeros((basis.n2, 64), dtype=torch.uint8, device=dev)
+        D.scalars(sf, w, coeff, n, sk)
+        pk = D.dots(sf, w, R, half)
+        accs = msm_windows(ck, basis, sk)
+        x = rnd.randrange(1, p)
+        xm, xim = sf.mont(x), sf.mont(pow(x, -1, p))
+        # (kernel, plain, multiplications, bytes: each input read once
+        # and each output written once)
+        runs = {
+            "ipa_scalars": (lambda: D.scalars(sf, w, coeff, n, sk),
+                            lambda: D.scalars_plain(sf, w, coeff, n, sk),
+                            n, n * (32 + 32 + 64), f"({n}, 64) uint8"),
+            "ipa_dots": (lambda: D.dots(sf, w, R, half),
+                         lambda: D.dots_plain(sf, w, R, half),
+                         2 * half, 2 * n * 32, f"half {half}"),
+            "ipa_combine": (lambda: D.combine(ck, sf, accs, D.ROWS, pk),
+                            lambda: D.combine_plain(ck, sf, accs, D.ROWS,
+                                                    pk),
+                            D.ROWS * 288 * MULS_PER_PADD,
+                            64 * 96 + D.ROWS * 96,
+                            "(3, 8, 64) window sums -> 2 rows"),
+            "ipa_fold": (lambda: D.fold(sf, w, R, coeff, n, xm, xim),
+                         lambda: D.fold_plain(sf, w, R, coeff, n, xm, xim),
+                         4 * half + n, 4 * n * 32 + 2 * half * 32,
+                         f"n {n}"),
+        }
+        for name, (kern, pl, muls, nbytes, shape) in runs.items():
+            ms = device_ms(torch, kern)
+            res[f"{name} {cname} 2^{log}"] = ms
+            if cname != "pallas":
+                rows[name][f"{cname}_2e{log}_ms"] = ms
+                continue
+            plain_ms = cuda_ms(torch, pl, reps=1)
+            bms, by = bound_ms(nbytes, muls * MADS_PER_MUL)
+            rows[name] = {
+                "name": name, "route": "cuda",
+                "source": "reef_tpu_torch/csrc/ipa.cu",
+                "replaces": ("none: reef_tpu/native/msm.cpp ipa_cross "
+                             "and ipa_fold (host C, no TPU kernel)"),
+                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bms, "bound_by": by, "library_ms": None,
+                "int_bound_ms": int_bound_ms(muls * MADS_PER_MUL),
+                "shape": f"{shape}, {cname} 2^{log}"}
+    emit("ipa", t0, device_ms=res)
+    return rows
+
+
 # csrc kernel function -> its rows of the kernel table (the rows "padd"
 # and "poseidon" count every launch of K1 and K5, as their counters do)
 KERNEL_ROWS = {"padd_kernel": ("padd",),
@@ -1416,7 +1550,11 @@ KERNEL_ROWS = {"padd_kernel": ("padd",),
                "fold_kernel": ("sumcheck_fold",),
                "eq_kernel": ("sumcheck_eq",),
                "mont_mul_kernel": ("mont_mul",),
-               "mont_redc_kernel": ("mont_redc",)}
+               "mont_redc_kernel": ("mont_redc",),
+               "ipa_scalars_kernel": ("ipa_scalars",),
+               "ipa_dots_kernel": ("ipa_dots",),
+               "ipa_combine_kernel": ("ipa_combine",),
+               "ipa_fold_kernel": ("ipa_fold",)}
 
 
 def e2e_profile(torch, prof):
@@ -1514,21 +1652,24 @@ def route_spies(exact: bool = False):
     """Record the device routes' calls inside an e2e: each msm_device_v3
     (curve, values, seconds, chunks) in `msms`, each device sumcheck
     (rounds, seconds) in `sumchecks`, each nlookup batch (tag, entries,
-    route, seconds) in `nlookups`.  With `exact`, the first device MSM of
-    each (curve, values) and the first device sumcheck of each (tag,
-    entries) keep their inputs and results: `rec.check()`, called after
-    the e2e's wall has stopped, holds the MSM against the native host MSM
-    on the same values and basis and the sumcheck against the host rounds
-    on copies of its table, point and transcript state (either raises on a
-    mismatch); the keys taken are in `exact_msms` and
-    `exact_sumchecks`."""
+    route, seconds) in `nlookups`, each round of the device IPA engine
+    (curve, length, basis chunks) in `ipa_rounds`.  With `exact`, the
+    first device MSM of each (curve, values) and the first device
+    sumcheck of each (tag, entries) keep their inputs and results:
+    `rec.check()`, called after the e2e's wall has stopped, holds the MSM
+    against the native host MSM on the same values and basis and the
+    sumcheck against the host rounds on copies of its table, point and
+    transcript state (either raises on a mismatch); the keys taken are in
+    `exact_msms` and `exact_sumchecks`."""
     import types
     from reef_tpu_torch.backend import witness
     from reef_tpu_torch.backend.commitment import PedersenGens
     from reef_tpu_torch.ec import msm_v3, native_msm
+    from reef_tpu_torch.ec.ipa_device import IpaDevice
     from reef_tpu_torch.ops import sumcheck_device
     rec = types.SimpleNamespace(msms=[], sumchecks=[], nlookups=[],
-                                exact_msms=[], exact_sumchecks=[])
+                                exact_msms=[], exact_sumchecks=[],
+                                ipa_rounds=[])
     pending = []                # (what, host function, its args, result)
 
     def check():
@@ -1541,6 +1682,13 @@ def route_spies(exact: bool = False):
     orig_sc = sumcheck_device.device_sumcheck_rounds
     orig_nl = witness.nlookup_prove
     orig_route = PedersenGens._msm_device_route
+    orig_cross = IpaDevice.cross
+
+    def ipa_round(self):
+        out = orig_cross(self)
+        rec.ipa_rounds.append((self.curve.name, self.n_orig,
+                               self.basis.n_chunks))
+        return out
 
     def timed(ck, scalars, points):
         t1 = time.perf_counter()
@@ -1594,12 +1742,14 @@ def route_spies(exact: bool = False):
         sumcheck_device.device_sumcheck_rounds = timed_sc
         witness.nlookup_prove = timed_nl
         PedersenGens._msm_device_route = checked_route
+        IpaDevice.cross = ipa_round
         yield rec
     finally:
         msm_v3.msm_device_v3 = orig_msm
         sumcheck_device.device_sumcheck_rounds = orig_sc
         witness.nlookup_prove = orig_nl
         PedersenGens._msm_device_route = orig_route
+        IpaDevice.cross = orig_cross
 
 
 def run_serve(torch) -> dict:
@@ -2115,6 +2265,9 @@ def main() -> int:
     phase_mxu(torch, dev)
     phase_msm_aux(torch, dev, rnd)
 
+    # ---- ipa: the IPA round kernels ---------------------------------------
+    kernels.update(phase_ipa(torch, dev, rnd))
+
     # ---- mesh: the multi-device prover ------------------------------------
     mesh_devs = phase_mesh(torch, dev, curves, rnd)
 
@@ -2155,6 +2308,7 @@ def main() -> int:
                     for name in os.listdir(work)
                     for ext in (".cmt", ".proof") if name.endswith(ext)}
             msms, sumchecks = list(rec.msms), list(rec.sumchecks)
+            ipa_rounds = list(rec.ipa_rounds)
             nl_runs["cold"] = taken(rec)
             # the same run again, warm (generators, circuits and bases
             # cached in the process): both routes on the host, then on the
@@ -2183,14 +2337,24 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     require(mesh_calls["sharded_msm"] > 0
             and mesh_calls["sharded_rounds"] > 0
-            and all(mesh_launches[k] > 0 for k in E2E_KERNELS),
+            and all(mesh_launches[k] > 0 for k in MESH_E2E_KERNELS),
             f"e2e on the mesh: a sharded route or a kernel never ran: "
             f"{mesh_calls}, {mesh_launches}")
     require(all(launches[k] > 0 for k in E2E_KERNELS),
             f"e2e: a kernel of the main path never launched: {launches}")
-    # K1 only in its reduces, one a chunk and one an MSM; one coefficient
-    # launch a sumcheck round
-    reduces = sum(m[3] + 1 for m in msms)
+    # the compressed SNARK's two proofs on the card: each IPA kernel once
+    # a round
+    require(sorted({(c, n) for c, n, _ in ipa_rounds}) ==
+            sorted((c, 1 << log) for c, log in IPA_MAIN)
+            and all(launches[k] == len(ipa_rounds) for k in IPA_KERNELS),
+            f"e2e: device IPA rounds {len(ipa_rounds)} over "
+            f"{sorted({(c, n) for c, n, _ in ipa_rounds})}, launches "
+            f"{ {k: launches[k] for k in IPA_KERNELS} }")
+    # K1 only in its reduces, one a chunk and one an MSM (the device IPA's
+    # rounds: one MSM of both rows each); one coefficient launch a
+    # sumcheck round
+    reduces = sum(m[3] + 1 for m in msms) + sum(c + 1 for _, _, c in
+                                                ipa_rounds)
     require(launches["padd_reduce"] == launches["padd"] == reduces,
             f"e2e: {launches['padd_reduce']} K1 reduces, {launches['padd']} "
             f"K1 launches, for {reduces} chunks and MSMs")
@@ -2224,6 +2388,8 @@ def main() -> int:
          device_busy_share=busy_us / 1e6 / prof_wall,
          device_ms_by_function=by_fn,
          device_msm_s=sum(m[2] for m in msms),
+         device_ipas=sorted({(c, n) for c, n, _ in ipa_rounds}),
+         device_ipa_rounds=len(ipa_rounds),
          device_sumchecks=[s[0] for s in sumchecks],
          device_sumcheck_s=sum(s[1] for s in sumchecks),
          nlookup_prove_s=nl_runs, launches=launches,

@@ -295,6 +295,10 @@ def _device_msm_on(n: Optional[int] = None) -> bool:
 
 
 DEVICE_MSM_MIN_N = 256          # below this the host MSM always wins
+# the least vector length whose IPA rounds run on the card (ec/ipa_device)
+# where the gate engages: below it the native host rounds win or tie
+# (PERF.md section 5, tools/ipa_sweep.py on an H100)
+IPA_DEVICE_MIN_N = 1 << 10
 DEVICE_ROWS_MIN_N = 4096        # tree-kernel shape floor for row batches
 
 

@@ -25,6 +25,7 @@ from typing import List, Tuple
 
 from ..ec.pasta import PALLAS, Point
 from ..ops import field as F
+from ..utils.metrics import count, span
 from .commitment import PedersenGens, Transcript
 
 f = F.FQ
@@ -72,9 +73,41 @@ def _batch_inverse(xs: List[int], p: int) -> List[int]:
     return out
 
 
+def _round_engine(gens: PedersenGens, w, R):
+    """The round engine of one proof: `IpaDevice` (ec/ipa_device.py) where
+    the device MSM gate engages for this thread at n >= IPA_DEVICE_MIN_N
+    and the process mesh has one device (a mesh holds only the sharded
+    basis: the engine's `device_G()` would upload the whole basis again),
+    else the native host engine, else None (the python rounds below).
+    Counts `IPA device` or `IPA host`."""
+    from . import commitment as CM
+    n = len(w)
+    if (n >= CM.IPA_DEVICE_MIN_N and CM._device_msm_on(n)
+            and CM._single_accel_device()):
+        from ..ec.ipa_device import IpaDevice
+        count("IPA", "device")
+        return IpaDevice(gens, w, R)
+    count("IPA", "host")
+    if n < 2:
+        return None
+    try:
+        from ..ec.native_msm import IpaNative
+        return IpaNative(gens.cv, w, R, gens.packed_G())
+    except RuntimeError:
+        return None
+
+
 def ipa_prove(gens: PedersenGens, G_s: Point, w: List[int], rho: int,
               R_pub: List[int], v: int, r_v: int, C_w: Point, C_v: Point,
               t: Transcript) -> IpaProof:
+    """Prover, in the span `Prover ipa`."""
+    with span("Prover", "ipa"):
+        return _ipa_prove(gens, G_s, w, rho, R_pub, v, r_v, C_w, C_v, t)
+
+
+def _ipa_prove(gens: PedersenGens, G_s: Point, w: List[int], rho: int,
+               R_pub: List[int], v: int, r_v: int, C_w: Point, C_v: Point,
+               t: Transcript) -> IpaProof:
     """Prover.  The folded basis is never materialized: after k rounds the
     folded G'_i is a challenge-product combination of original points, so
     each L/R is computed as one MSM over (half of) the ORIGINAL basis with
@@ -98,14 +131,11 @@ def ipa_prove(gens: PedersenGens, G_s: Point, w: List[int], rho: int,
         R = [x % p for x in R_pub]
     rho_p = (rho + tau * r_v) % p
 
-    # native round engine: w/R/coeff folds, cross dots, and the two
-    # expanded-scalar MSMs per round all run in C (native/msm.cpp ipa_*);
-    # only the transcript, blinds, and G_s/H terms stay here
-    try:
-        from ..ec.native_msm import IpaNative
-        eng = IpaNative(cv, w, R, gens.packed_G()) if n > 1 else None
-    except RuntimeError:
-        eng = None
+    # round engine: w/R/coeff folds, cross dots, and the two
+    # expanded-scalar MSMs per round run on the card (ec/ipa_device.py) or
+    # in C (native/msm.cpp ipa_*); only the transcript, blinds, and G_s/H
+    # terms stay here
+    eng = _round_engine(gens, w, R)
     if eng is not None:
         Ls, Rs = [], []
         n_cur = n

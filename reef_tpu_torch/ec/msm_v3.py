@@ -167,13 +167,14 @@ def chunk_prefixes(ck: CurveKernels, pts: torch.Tensor, scb: torch.Tensor,
                    reduce: ReduceFn = padd_reduce) -> torch.Tensor:
     """acc (3, 8, W, DP) + this chunk's boundary prefix sums.
 
-    pts (3, 8, cap) int32 basis chunk; scb (cap, 32) uint8 scalar bytes.
-    `padd`, `tree` and `reduce` are the kernels' wrappers, or their plain
-    versions (to time the plain pipeline on the card)."""
+    pts (3, 8, cap) int32 basis chunk; scb (cap, W) uint8 scalar bytes,
+    a byte a window (32 a row of scalars).  `padd`, `tree` and `reduce`
+    are the kernels' wrappers, or their plain versions (to time the plain
+    pipeline on the card)."""
     dev = pts.device
     cap = pts.shape[2]
     log = cap.bit_length() - 1
-    W = N_WINDOWS
+    W = scb.shape[1]
 
     digs = scb.t().to(torch.int64)                         # (W, cap)
     lanes = torch.arange(cap, dtype=torch.int64, device=dev)
@@ -238,11 +239,13 @@ def msm_windows(ck: CurveKernels, basis: "DeviceBasisV3", scb: torch.Tensor,
                 padd: PaddFn = padd_soa, tree=tree_levels,
                 reduce: ReduceFn = padd_reduce) -> torch.Tensor:
     """Window sums (3, 8, W) of one MSM; scb (n2, 32) uint8 on the basis's
-    device."""
+    device.  R MSMs of the basis at once: scb (n2, 32 R), row r's bytes at
+    32 r .. 32 r + 31, its window sums at the same indices of W = 32 R."""
+    W = scb.shape[-1]
     acc = ck.ident_t(basis.device)[:, :, None, None].expand(
-        3, limb.N32, N_WINDOWS, DP).contiguous()
+        3, limb.N32, W, DP).contiguous()
     use_tree = basis.all_z1 and basis.cap >= TREE_MIN_CAP
-    scb = scb.reshape(basis.n_chunks, basis.cap, 32)
+    scb = scb.reshape(basis.n_chunks, basis.cap, W)
     for c in range(basis.n_chunks):
         acc = chunk_prefixes(ck, basis.arr[c], scb[c], acc, use_tree,
                              padd, tree, reduce)

@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, Iterable, Optional
 
@@ -35,6 +36,7 @@ FLAGS = ["-O3", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 P, I, L, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
+B = ctypes.c_char_p        # host bytes
 
 # kernel library -> (source, {exported function: argtypes}); every
 # function returns a cudaError_t as an int
@@ -54,23 +56,33 @@ LIBS = {
         "reef_sc_eq_step": [P, L, P, L, P, P, I, P]}),
     "mont": ("mont.cu", {"reef_mont_mul": [P, P, P, L, I, P],
                          "reef_mont_redc": [P, P, L, I, P]}),
+    "ipa": ("ipa.cu", {
+        "reef_ipa_scalars": [P, P, P, L, L, I, P],
+        "reef_ipa_dots": [P, P, P, L, L, I, I, P],
+        "reef_ipa_combine": [P, I, P, I, P, I, P],
+        "reef_ipa_fold": [P, P, P, L, L, B, I, P]}),
 }
 
 # the kernels whose launches are counted (the K6 library has three, the
 # K3/K4 library two); "padd" counts every K1 launch, "padd_spread" those
 # of its group-per-add kernel and "padd_reduce" its halving reduces;
 # "poseidon" counts every K5 launch, "poseidon_spread" those of its
-# block-per-state kernel
+# block-per-state kernel; the IPA library's kernels count one each
 KERNELS = ("padd", "padd_spread", "padd_reduce", "msm_tree", "poseidon",
            "poseidon_spread", "sumcheck_coeffs", "sumcheck_fold",
-           "sumcheck_eq", "mont_mul", "mont_redc")
+           "sumcheck_eq", "mont_mul", "mont_redc", "ipa_scalars", "ipa_dots",
+           "ipa_combine", "ipa_fold")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _COUNTS: Dict[str, int] = {name: 0 for name in KERNELS}
+# the compressed SNARK's two Spartan proofs launch from two threads at once
+_COUNTS_LOCK = threading.Lock()
+_LOAD_LOCK = threading.Lock()
 
 
 def count(kernel: str) -> None:
-    _COUNTS[kernel] += 1
+    with _COUNTS_LOCK:
+        _COUNTS[kernel] += 1
 
 
 def launch_counts() -> Dict[str, int]:
@@ -139,9 +151,15 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library `name`, built first if need be."""
+    """The loaded library `name`, built first if need be (once, whichever
+    thread asks first)."""
     lib = _LOADED.get(name)
-    if lib is None:
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        lib = _LOADED.get(name)
+        if lib is not None:
+            return lib
         path = build([name])[name]["path"]
         lib = ctypes.CDLL(path)
         for fn, argtypes in LIBS[name][1].items():
@@ -150,7 +168,7 @@ def library(name: str) -> ctypes.CDLL:
         lib.reef_cuda_error_string.argtypes = [ctypes.c_int]
         lib.reef_cuda_error_string.restype = ctypes.c_char_p
         _LOADED[name] = lib
-    return lib
+        return lib
 
 
 def on_card(name: str, t) -> bool:

@@ -29,6 +29,7 @@ READERS = {
     "prover.spartan_sumcheck_s": [("Prover", "spartan.sumcheck1"),
                                   ("Prover", "spartan.sumcheck2")],
     "prover.spartan_open_s": [("Prover", "spartan.open")],
+    "prover.ipa_s": [("Prover", "ipa")],
     "routes.msm_host_s.prove": [("MSM", "scalars"), ("MSM", "upload"),
                                 ("MSM", "combine")],
     "commit.rows_s": [("CommitmentGen", "rows")],
@@ -41,6 +42,7 @@ NESTED = [
     (("Solver", "solve"), ("Solver", "fa_solver+wit")),
     (("Solver", "wait_fold"), ("Solver", "fa_solver+wit")),
     (("Prover", "spartan.open"), ("Prover", "compressed_snark")),
+    (("Prover", "ipa"), ("Prover", "spartan.open")),
     (("Prover", "wait_spartan2"), ("Prover", "compressed_snark")),
     (("Compiler", "circuit"), ("Compiler", "r1cs_init")),
     (("CommitmentGen", "rows"), ("CommitmentGen", "generation")),
@@ -119,6 +121,9 @@ def test_metrics_csv_carries_the_spans_and_counters(e2e_argv, frequent_gc,
                 assert times[key] > 0, key
     assert counts[("Host", "gc_collections")] > 0
     assert counts[("Prover", "fold_steps")] >= 1
+    # every IPA on the host engine: the two Spartan proofs, the Hyrax
+    # opening and the CAP's two
+    assert counts[("IPA", "host")] == 5 and ("IPA", "device") not in counts
     for what in ("table", "circuit"):     # prove's and verify's pub_setup
         assert counts[("Compiler", f"{what}_cache_hit")] >= 1
         assert counts[("Compiler", f"{what}_cache_hit")] + \
