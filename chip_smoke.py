@@ -120,9 +120,10 @@ script exits non-zero and prints no result:
           kernel's device time over one warm e2e, by name.  Last, the same
           run on the mesh phase's devices as the process mesh: it must
           prove and verify, sharded_msm and the sharded sumcheck rounds
-          must each have run, and K1, K2, K5 and K6 must have launched in
-          it (its counts, set to 0 just before it, are `mesh_launches`;
-          a mesh keeps the IPA rounds on the host)
+          must each have run, and K1, K2, K5, K6 and the IPA rounds'
+          kernels must have launched in it (its counts, set to 0 just
+          before it, are `mesh_launches`; the compressed SNARK's IPA
+          rounds run on the mesh's engine, ec/ipa_device.py `IpaMesh`)
   reject  the cold e2e run's own .cmt/.proof pair (made with K1, K2, K5's
           block-per-state launch and K6 on the card), read back with
           serialize.load: it must verify, and REJECT_LEAVES seeded int
@@ -2337,7 +2338,7 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     require(mesh_calls["sharded_msm"] > 0
             and mesh_calls["sharded_rounds"] > 0
-            and all(mesh_launches[k] > 0 for k in MESH_E2E_KERNELS),
+            and all(mesh_launches[k] > 0 for k in E2E_KERNELS),
             f"e2e on the mesh: a sharded route or a kernel never ran: "
             f"{mesh_calls}, {mesh_launches}")
     require(all(launches[k] > 0 for k in E2E_KERNELS),

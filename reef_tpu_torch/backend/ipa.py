@@ -74,17 +74,21 @@ def _batch_inverse(xs: List[int], p: int) -> List[int]:
 
 
 def _round_engine(gens: PedersenGens, w, R):
-    """The round engine of one proof: `IpaDevice` (ec/ipa_device.py) where
-    the device MSM gate engages for this thread at n >= IPA_DEVICE_MIN_N
-    and the process mesh has one device (a mesh holds only the sharded
-    basis: the engine's `device_G()` would upload the whole basis again),
-    else the native host engine, else None (the python rounds below).
-    Counts `IPA device` or `IPA host`."""
+    """The round engine of one proof, where the device MSM gate engages
+    for this thread at n >= IPA_DEVICE_MIN_N: `IpaMesh` over the basis
+    the process mesh holds when it has more than one device, else
+    `IpaDevice` (ec/ipa_device.py); elsewhere the native host engine,
+    else None (the python rounds below).  Counts `IPA mesh`, `IPA
+    device` or `IPA host`."""
     from . import commitment as CM
     n = len(w)
-    if (n >= CM.IPA_DEVICE_MIN_N and CM._device_msm_on(n)
-            and CM._single_accel_device()):
-        from ..ec.ipa_device import IpaDevice
+    if n >= CM.IPA_DEVICE_MIN_N and CM._device_msm_on(n):
+        from ..ec.ipa_device import IpaDevice, IpaMesh
+        from ..parallel.mesh import process_mesh
+        mesh = process_mesh()
+        if mesh.size > 1:
+            count("IPA", "mesh")
+            return IpaMesh(gens, w, R, mesh)
         count("IPA", "device")
         return IpaDevice(gens, w, R)
     count("IPA", "host")

@@ -34,17 +34,22 @@ than the wall of the stage around it):
   Prover       doc_transform, prewarm, fold_step (the fold worker),
                compressed_snark, spartan.sumcheck1, spartan.sumcheck2,
                spartan.open (each Spartan proof, the CAP's too),
-               wait_spartan2, consistency_proof, wait_consistency
+               wait_spartan2, consistency_proof, wait_consistency,
+               ipa (each IPA, any thread)
   MSM          basis_upload, and the device MSM's scalars, upload,
                kernels, combine (the read-back, with the wait for the
                kernels)
+  Mesh         on a process mesh of more than one device: scalars (the
+               shards' input copies), issue (the shards' launches),
+               gather (their results summed on the lead)
   Verifier     setup, snark_verification (starts the IVC check's
                thread), ivc_check, consistency_verification:
                consistency, wait_ivc
 
 `count` rows (unit `events`): Host gc_collections; Compiler
 table_cache_hit/_miss, circuit_cache_hit/_miss; Solver
-device_cache_hit/_miss; Prover fold_steps; MSM basis_upload.
+device_cache_hit/_miss; Prover fold_steps; MSM basis_upload; IPA device,
+mesh, host (the round engine each IPA took); Mesh shards, gather_bytes.
 `constraints` and `space` rows as in the reference.
 """
 

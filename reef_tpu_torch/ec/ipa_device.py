@@ -1,45 +1,55 @@
-"""The IPA prover's rounds on the card: `IpaDevice`.
+"""The IPA prover's rounds on the card: `IpaDevice`, and `IpaMesh` over a
+mesh's sharded basis.
 
 A drop-in for ec/native_msm.py `IpaNative` (`cross`, `fold`, `final`,
 `close`), which backend/ipa.py `ipa_prove` takes where the device MSM gate
 engages at the vector's length.  The round state lives on the basis's
-device as (8, n) int32 scalar-field tables (ops.limb's device layout): w
-and R canonical, the fold coefficients Montgomery (csrc/ipa.cu says why).
-The basis is the gens' resident `device_G()`; the engine uploads w and R
-once and nothing else.  A round:
+device (a mesh's lead) as (8, n) int32 scalar-field tables (ops.limb's
+device layout): w and R canonical, the fold coefficients Montgomery
+(csrc/ipa.cu says why).  `IpaDevice`'s basis is the gens' resident
+`device_G()`; `IpaMesh`'s is the basis the process mesh already holds,
+`sharded_G(mesh)`, so a mesh never uploads the whole basis to one card.
+The engine uploads w and R once and nothing else.  A round:
 
   1. `scalars`: both rows of expanded scalars over the original basis as
      the MSM's scalar bytes, side by side (n2, 64);
   2. `dots`: the two cross dots, one partial a block;
   3. ec/msm_v3.py `msm_windows` over the resident basis, the two rows as
-     64 windows (K2's tree, then K1's reduces);
+     64 windows (K2's tree, then K1's reduces); on a mesh, each shard's
+     slice of the scalar bytes is copied to its card, each shard runs
+     `msm_windows` over its own points and the lead adds the shards'
+     window sums with one K1 reduce (parallel/mesh.py
+     `sharded_windows`);
   4. `combine`: each row's window sums by Horner, and the dots' partials
      summed, into one (3 * 8 * 2 + 16) int32 buffer, read back with one
-     copy that waits on the engine's stream alone;
+     copy that waits on the engine's streams alone;
   5. `fold(x)`: w, R and the coefficients folded by the challenge.
 
 Every round's MSMs run over the whole original basis, each row zero
-where a point does not contribute: a basis folded on the card to the
-current length was 10% faster for the IPA alone at Pallas 2^16, too
-little to show in a prove (PERF.md).  Each wrapper launches its kernel
-on a CUDA tensor and runs its plain version (the same arithmetic in
-plain torch, ops.limb and ec.msm) on a CPU tensor; every launch counts
-once under its kernel's name (`ipa_scalars`, `ipa_dots`, `ipa_combine`,
-`ipa_fold`).  Each engine has its own CUDA stream on its device, so the
+where a point does not contribute (on a mesh, the shards past the
+vector's length are skipped): a basis folded on the card to the current
+length was 10% faster for the IPA alone at Pallas 2^16, too little to
+show in a prove (PERF.md).  Each wrapper launches its kernel on a CUDA
+tensor and runs its plain version (the same arithmetic in plain torch,
+ops.limb and ec.msm) on a CPU tensor; every launch counts once under its
+kernel's name (`ipa_scalars`, `ipa_dots`, `ipa_combine`, `ipa_fold`).
+Each engine has its own CUDA stream on every card it uses, so the
 compressed SNARK's two Spartan proofs can run their rounds at once.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import List, Optional, Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
 
 from ..ops import limb
 from ..ops.limb import LimbField
+from ..parallel import mesh as PM
 from ..utils import cudabuild
+from ..utils.metrics import span
 from .msm import CurveKernels, padd as _padd16
 from .msm_v3 import N_WINDOWS, msm_windows
 from .padd import limb_join, limb_split
@@ -266,37 +276,53 @@ class IpaDevice:
     `IpaNative.cross`, then `fold(x)`; `final()` the folded scalar."""
 
     def __init__(self, gens, w: List[int], R: List[int]):
-        self.curve = gens.cv
         self.basis = gens.device_G()
+        self._start(gens.cv, self.basis.n, self.basis.device,
+                    self.basis.n2, [self.basis.device], w, R)
+
+    def _start(self, curve, n_basis: int, lead: torch.device,
+               scb_rows: int, devices, w: List[int], R: List[int]) -> None:
+        """The round state on `lead`, and a stream of the engine's own on
+        each CUDA device of `devices`."""
+        self.curve = curve
         self.ck = self.basis.ck
-        self.sf = scalar_field(self.curve)
+        self.sf = scalar_field(curve)
         n = len(w)
-        if n < 2 or n & (n - 1) or len(R) != n or n > self.basis.n:
-            raise ValueError(f"IpaDevice: {n} scalars, {len(R)} R, a basis "
-                             f"of {self.basis.n}")
-        self.n = n
-        dev = self.basis.device
-        self.stream: Optional[torch.cuda.Stream] = None
-        if dev.type == "cuda":
-            self.stream = torch.cuda.Stream(dev)
-            # the basis and the constants came on the default stream
-            self.stream.wait_stream(torch.cuda.current_stream(dev))
+        if n < 2 or n & (n - 1) or len(R) != n or n > n_basis:
+            raise ValueError(f"{type(self).__name__}: {n} scalars, {len(R)} "
+                             f"R, a basis of {n_basis}")
+        self.n = self.n_orig = n
+        # the lead's stream last, so that the lead is current inside
+        # `_on_stream`
+        devs = [d for d in dict.fromkeys(devices) if d != lead] + [lead]
+        self.streams: List[torch.cuda.Stream] = []
+        for dev in devs:
+            if dev.type == "cuda":
+                s = torch.cuda.Stream(dev)
+                # the basis and the constants came on the current stream
+                s.wait_stream(torch.cuda.current_stream(dev))
+                self.streams.append(s)
         p = self.sf.p_int
         one = limb._ints_to_words([self.sf.r_int], np.uint32)
         with self._on_stream():
-            self.w = _table(w, p, dev)
-            self.R = _table(R, p, dev)
+            self.w = _table(w, p, lead)
+            self.R = _table(R, p, lead)
             # coefficients of one over the n basis points
             self.coeff = torch.from_numpy(one.T.view(np.int32).copy()) \
-                .to(dev).expand(limb.N32, n).contiguous()
-            self.scb = torch.zeros((self.basis.n2, 32 * ROWS),
-                                   dtype=torch.uint8, device=dev)
-        self.n_orig = n
+                .to(lead).expand(limb.N32, n).contiguous()
+            self.scb = torch.zeros((scb_rows, 32 * ROWS),
+                                   dtype=torch.uint8, device=lead)
 
     def _on_stream(self):
-        if self.stream is None:
-            return contextlib.nullcontext()
-        return torch.cuda.stream(self.stream)
+        """The engine's streams current on their devices."""
+        ctx = contextlib.ExitStack()
+        for s in self.streams:
+            ctx.enter_context(torch.cuda.stream(s))
+        return ctx
+
+    def _windows(self) -> torch.Tensor:
+        """The round's (3, 8, 64) window sums, on the lead."""
+        return msm_windows(self.ck, self.basis, self.scb)
 
     def cross(self) -> Tuple[int, int, Point, Point]:
         """This round's cL = <w_lo, R_hi>, cR = <w_hi, R_lo> and the MSMs
@@ -305,7 +331,7 @@ class IpaDevice:
         with self._on_stream():
             scalars(sf, self.w, self.coeff, n, self.scb)
             part = dots(sf, self.w, self.R, n // 2)
-            accs = msm_windows(ck, self.basis, self.scb)
+            accs = self._windows()
             out = combine(ck, sf, accs, ROWS, part).cpu().numpy()
         npt = 3 * limb.N32 * ROWS
         mL, mR = ck.to_affine(out[:npt].reshape(3, limb.N32, ROWS)
@@ -330,4 +356,43 @@ class IpaDevice:
 
     def close(self) -> None:
         self.w = self.R = self.coeff = self.scb = None
-        self.stream = None
+        self.streams = []
+
+
+class IpaMesh(IpaDevice):
+    """`IpaDevice` over the basis `mesh` holds, `gens.sharded_G(mesh)`
+    (parallel/mesh.py ShardedBasis; never `device_G()`): the round state,
+    the scalars, the dots, the combine and the fold on the lead; each
+    round, every shard that holds a point of the vector gets its slice of
+    the scalar bytes (n_local rows) on its card and runs `msm_windows`
+    over its own points, and the lead adds the shards' window sums
+    (`sharded_windows`)."""
+
+    def __init__(self, gens, w: List[int], R: List[int], mesh):
+        self.basis = basis = gens.sharded_G(mesh)
+        nl, lead = basis.n_local, mesh.lead
+        shards = basis.shards[:max(1, -(-len(w) // nl))]
+        self._start(gens.cv, basis.n, lead, nl * len(shards),
+                    [b.device for b in shards], w, R)
+        # each shard's scalar bytes: a buffer on its card whose first
+        # rows each round copies from the lead (the rest stay zero: the
+        # vector or the basis ends there)
+        self.scbs: List[torch.Tensor] = []
+        self.copies: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        with self._on_stream():
+            for d, b in enumerate(shards):
+                buf = torch.zeros((b.n2, 32 * ROWS), dtype=torch.uint8,
+                                  device=b.device)
+                m = min(nl, self.n_orig - d * nl)
+                self.scbs.append(buf)
+                self.copies.append((buf[:m], self.scb[d * nl:d * nl + m]))
+
+    def _windows(self) -> torch.Tensor:
+        with span("Mesh", "scalars"):
+            for dst, src in self.copies:
+                dst.copy_(src, non_blocking=True)
+        return PM.sharded_windows(self.ck, self.basis, self.scbs)
+
+    def close(self) -> None:
+        super().close()
+        self.scbs, self.copies = [], []

@@ -20,11 +20,16 @@ CPU tensors every step runs its kernel's plain version.
 
 A DeviceTableCache may split the table over the devices of a mesh
 (parallel.mesh) by its low bits; its rounds (`sharded_rounds`) then run
-the coefficients and the folds on each shard and the sponge on the lead.
+the coefficients and the folds on each shard and the sponge on the lead,
+recording the mesh's spans and counters (parallel/mesh.py): each round's
+shard launches in `Mesh issue`, the coefficients' sum on the lead in
+`Mesh gather` (no host wait: the rounds never sync), the eq table's
+copies to the shards in `Mesh scalars`.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -33,6 +38,7 @@ import torch
 from . import limb, poseidon_device
 from . import sumcheck_kernel as K
 from .limb import LimbField
+from ..utils.metrics import count, span
 from .poseidon import HostSponge
 
 
@@ -147,14 +153,18 @@ def sum_coeffs(lf: LimbField, parts: List[torch.Tensor], lead: torch.device,
     t0 = e0 = 0, t1 = xsq, e1 = 1 (xsq to xsq); the other pairs are 0."""
     m = len(parts)
     half = 1 << (3 * m - 1).bit_length()
-    G = torch.cat([g.to(lead) for g in parts], dim=2)       # (3, 8, m)
-    t = torch.zeros((limb.N32, 2 * half), dtype=torch.int32, device=lead)
-    t[:, :m] = G[2]
-    t[:, half:half + 3 * m] = G.flip(0).permute(1, 0, 2).reshape(
-        limb.N32, 3 * m)                                    # con, x, xsq
-    e = _sum_pattern(lf, m, half, lead)
-    return K.coeffs(lf, t[:, :half], t[:, half:], e[:, :half], e[:, half:],
-                    state)
+    with span("Mesh", "gather"):
+        count("Mesh", "gather_bytes",
+              sum(g.numel() * g.element_size() for g in parts))
+        G = torch.cat([g.to(lead) for g in parts], dim=2)   # (3, 8, m)
+        t = torch.zeros((limb.N32, 2 * half), dtype=torch.int32,
+                        device=lead)
+        t[:, :m] = G[2]
+        t[:, half:half + 3 * m] = G.flip(0).permute(1, 0, 2).reshape(
+            limb.N32, 3 * m)                                # con, x, xsq
+        e = _sum_pattern(lf, m, half, lead)
+        return K.coeffs(lf, t[:, :half], t[:, half:], e[:, :half],
+                        e[:, half:], state)
 
 
 def sharded_rounds(lf: LimbField, t_shards: List[torch.Tensor],
@@ -177,20 +187,28 @@ def sharded_rounds(lf: LimbField, t_shards: List[torch.Tensor],
     rs, gs = [], []
     while t_shards[0].shape[1] > 1:
         h = t_shards[0].shape[1] // 2
-        parts = [K.coeffs(lf, t[:, :h], t[:, h:], e[:, :h], e[:, h:])[0]
-                 for t, e in zip(t_shards, e_shards)]
+        count("Mesh", "shards", m)
+        with span("Mesh", "issue"):
+            parts = [K.coeffs(lf, t[:, :h], t[:, h:], e[:, :h],
+                              e[:, h:])[0]
+                     for t, e in zip(t_shards, e_shards)]
         g, state = sum_coeffs(lf, parts, lead, state)
         state = poseidon_device.permute(lf, state)
         r = state[1]
-        folded = [K.fold(lf, t[:, :h], t[:, h:], e[:, :h], e[:, h:],
-                         r.to(t.device))
-                  for t, e in zip(t_shards, e_shards)]
+        with span("Mesh", "issue"):
+            folded = [K.fold(lf, t[:, :h], t[:, h:], e[:, :h], e[:, h:],
+                             r.to(t.device))
+                      for t, e in zip(t_shards, e_shards)]
         t_shards = [tf for tf, _ in folded]
         e_shards = [ef for _, ef in folded]
         rs.append(r)
         gs.append(g)
-    t_tab = torch.cat([t.to(lead) for t in t_shards], dim=1)
-    e_tab = torch.cat([e.to(lead) for e in e_shards], dim=1)
+    with span("Mesh", "gather"):
+        count("Mesh", "gather_bytes",
+              sum(t.numel() * t.element_size()
+                  for t in t_shards + e_shards))
+        t_tab = torch.cat([t.to(lead) for t in t_shards], dim=1)
+        e_tab = torch.cat([e.to(lead) for e in e_shards], dim=1)
     rs2, gs2, final_t, state = sumcheck_rounds(lf, t_tab, e_tab, state,
                                                m.bit_length() - 1)
     return (torch.stack(rs + list(rs2)), torch.stack(gs + list(gs2)),
@@ -230,8 +248,12 @@ def device_sumcheck_rounds(lf: LimbField, cache: DeviceTableCache,
                       lf.encode32(prev_q, dev))
 
     # the eq table is built whole on the lead, then split as the table is
+    # (on a mesh: the copies to the shards, `Mesh scalars`)
+    with (span("Mesh", "scalars") if len(cache.devices) > 1
+          else contextlib.nullcontext()):
+        eq_shards = cache.split(eq_tab)
     rs_out, gs_out, final_t, state = sharded_rounds(
-        lf, cache.t_shards, cache.split(eq_tab), state, ell)
+        lf, cache.t_shards, eq_shards, state, ell)
     # one copy back: challenges, coefficients, final claim, sponge state
     back = torch.cat([rs_out.permute(1, 0, 2).reshape(limb.N32, -1),
                       gs_out.permute(2, 0, 1, 3).reshape(limb.N32, -1),

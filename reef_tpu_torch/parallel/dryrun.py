@@ -8,9 +8,11 @@ The port of the JAX package's `__graft_entry__.dryrun_multichip`:
   2. the sharded MSM on real curve points against the native host MSM;
   3. commit + prove + verify of a document with both sharded routes
      forced (REEF_DEVICE_MSM=1, REEF_DEVICE_SUMCHECK=1) on the mesh as the
-     process mesh: the proof must verify, and the commit MSMs that ran on
-     `sharded_msm` and the sumchecks that ran on `sharded_rounds` over
-     more than one shard are counted (both must be more than 0).
+     process mesh, the compressed SNARK's IPAs on the mesh's round
+     engine (ec/ipa_device.py `IpaMesh`): the proof must verify, and the
+     commit MSMs that ran on `sharded_msm` and the sumchecks that ran on
+     `sharded_rounds` over more than one shard are counted (both must be
+     more than 0).
 
     python -m reef_tpu_torch.parallel.dryrun                  # the card(s)
     python -m reef_tpu_torch.parallel.dryrun cuda:0 cuda:0    # two shards
@@ -78,9 +80,11 @@ def dryrun_multichip(devices: Sequence, msm_n: int = 64,
     """Run the three steps on a mesh over `devices`; raises on any
     mismatch or failed verification.  Step 2 takes msm_n points a device;
     step 3 routes every commit MSM that takes the device route to the
-    sharded MSM, or with `e2e_mesh_commits` only that many, the later
-    ones to the host MSM (on the CPU a shard's plain point adds take
-    seconds).  Returns what each step counted and its seconds."""
+    sharded MSM and every IPA to the mesh's round engine, or with
+    `e2e_mesh_commits` only that many commits, the later ones to the host
+    MSM and every IPA to the host engine (on the CPU a shard's plain
+    point adds take seconds).  Returns what each step counted and its
+    seconds."""
     from ..backend import commitment as CM
     from ..backend import framework as FW
     from ..backend import sumcheck as SC
@@ -165,6 +169,9 @@ def dryrun_multichip(devices: Sequence, msm_n: int = 64,
         PM.select(mesh)
         with _env(REEF_DEVICE_MSM="1", REEF_DEVICE_SUMCHECK="1"), \
                 _patched(CM, "DEVICE_MSM_MIN_N", CM.DEVICE_MSM_MIN_N), \
+                _patched(CM, "IPA_DEVICE_MIN_N",
+                         CM.IPA_DEVICE_MIN_N if e2e_mesh_commits is None
+                         else 1 << 62), \
                 _patched(PM, "sharded_msm", msm_counted), \
                 _patched(SD, "sharded_rounds", rounds_counted):
             commit, dc = FW.run_committer(codes, safa.ab, False, seed=7)

@@ -29,6 +29,10 @@ results, runs the Fiat-Shamir sponge and combines.
     coefficients and folds (K6) and sums its points (K1); the lead sums
     the coefficients mod p (one K6 launch) and the points (one K1
     launch).
+  - the IPA rounds of the compressed SNARK (ec/ipa_device.py `IpaMesh`):
+    the round state on the lead; each round, each shard's slice of the
+    scalar bytes copied to its card and its window sums computed there
+    over the sharded basis (`sharded_windows`), summed on the lead.
 
 A shard's work is issued without a host sync, so shards on different
 cards overlap: the host syncs (the scalar uploads, the final copy back)
@@ -36,6 +40,16 @@ come before the first shard's launches or after the last.  Shards that
 share a card run on its current stream, one after another; K6's
 coefficient launch needs that, since its block ticket is one word a card
 (ops/sumcheck_kernel.py `_ticket`).
+
+Every sharded call records, in a request run with `--metrics`
+(utils/metrics.py), the spans `Mesh scalars` (the per-shard input
+copies: the MSM's scalar bytes, the sumcheck's eq table, the step's
+blocks), `Mesh issue` (the host issuing every shard's launches, one
+Python thread for all the cards) and `Mesh gather` (the shards' results
+copied to the lead and summed there; for the MSM windows it ends with
+the lead's stream synchronised, so it holds the wait for the slowest
+card), and the counters `Mesh shards` (shards issued) and `Mesh
+gather_bytes` (bytes of partial results gathered).
 
 The process mesh (`select`, `process_mesh`) is the one the commit route
 (backend.commitment) and the sumcheck cache (backend.witness) read.
@@ -59,6 +73,7 @@ from ..ops import sumcheck_kernel as K
 from ..ops.limb import FQ, LimbField
 from ..ops.sumcheck_device import DeviceTableCache, sum_coeffs
 from ..utils.device import _check, resolve
+from ..utils.metrics import count, span
 
 
 @dataclass(frozen=True)
@@ -170,21 +185,40 @@ def upload_sharded_scalars(basis: ShardedBasis,
                            scalars: List[int]) -> List[torch.Tensor]:
     """Each shard's slice of the scalars as (n2, 32) uint8 bytes on its
     device (`upload_scalars`; a blocking copy, so all of them come before
-    the shards' launches)."""
+    the shards' launches), in the span `Mesh scalars`."""
     if len(scalars) > basis.n:
         raise ValueError(f"{len(scalars)} scalars for a basis of {basis.n}")
     nl = basis.n_local
-    return [upload_scalars(b, [scalars[d * nl:(d + 1) * nl]])[0]
-            for d, b in enumerate(basis.shards)]
+    with span("Mesh", "scalars"):
+        return [upload_scalars(b, [scalars[d * nl:(d + 1) * nl]])[0]
+                for d, b in enumerate(basis.shards)]
+
+
+def gather(lead: torch.device,
+           parts: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The shards' partial results copied to the lead, counted under
+    `Mesh gather_bytes` (call inside the span `Mesh gather`)."""
+    count("Mesh", "gather_bytes",
+          sum(t.numel() * t.element_size() for t in parts))
+    return [t.to(lead) for t in parts]
 
 
 def sharded_windows(ck: CurveKernels, basis: ShardedBasis,
                     scbs: List[torch.Tensor]) -> torch.Tensor:
-    """The MSM's 32 window sums (3, 8, W) on the lead: each shard's
-    (`msm_windows`), added across the shards."""
-    wins = [msm_windows(ck, b, s) for b, s in zip(basis.shards, scbs)]
+    """The window sums (3, 8, W) on the lead of the MSM whose scalar bytes
+    on the first len(scbs) shards are `scbs` (the shards past them hold
+    only zero scalars and are skipped): each shard's (`msm_windows`),
+    issued in the span `Mesh issue`, then added across the shards on the
+    lead in `Mesh gather`, which ends when the lead has the sum."""
+    count("Mesh", "shards", len(scbs))
+    with span("Mesh", "issue"):
+        wins = [msm_windows(ck, b, s) for b, s in zip(basis.shards, scbs)]
     lead = basis.mesh.lead
-    return _point_sum(ck, torch.stack([w.to(lead) for w in wins], dim=2))
+    with span("Mesh", "gather"):
+        acc = _point_sum(ck, torch.stack(gather(lead, wins), dim=2))
+        if lead.type == "cuda":
+            torch.cuda.current_stream(lead).synchronize()
+    return acc
 
 
 def sharded_msm(mesh: Mesh, ck: CurveKernels, scalars: List[int],
@@ -253,20 +287,25 @@ def sharded_prover_step(mesh: Mesh):
     def step(states, t_tab, eq_tab, r, pts):
         lead = mesh.lead
         m = mesh.size
-        shards = zip(_split(states, m, devs), _split(t_tab, m, devs),
-                     _split(eq_tab, m, devs), _split(pts, m, devs))
+        with span("Mesh", "scalars"):
+            shards = list(zip(_split(states, m, devs),
+                              _split(t_tab, m, devs),
+                              _split(eq_tab, m, devs), _split(pts, m, devs)))
+        count("Mesh", "shards", m)
         outs = []
-        for (s, t, e, p), dev in zip(shards, devs):
-            rd = r.to(dev)
-            g, _ = K.coeffs(lf, t[0], t[1], e[0], e[1])
-            outs.append((poseidon_device.permute(lf, s), g,
-                         *K.fold(lf, t[0], t[1], e[0], e[1], rd),
-                         _point_sum(ck, p[:, :, :, None])))
+        with span("Mesh", "issue"):
+            for (s, t, e, p), dev in zip(shards, devs):
+                rd = r.to(dev)
+                g, _ = K.coeffs(lf, t[0], t[1], e[0], e[1])
+                outs.append((poseidon_device.permute(lf, s), g,
+                             *K.fold(lf, t[0], t[1], e[0], e[1], rd),
+                             _point_sum(ck, p[:, :, :, None])))
         g, _ = sum_coeffs(lf, [o[1] for o in outs], lead)
-        acc = _point_sum(ck, torch.stack([o[4].to(lead) for o in outs],
-                                         dim=2))
-        cat = [torch.cat([o[i].to(lead) for o in outs], dim=-1)
-               for i in (0, 2, 3)]
+        with span("Mesh", "gather"):
+            acc = _point_sum(ck, torch.stack(
+                gather(lead, [o[4] for o in outs]), dim=2))
+            cat = [torch.cat(gather(lead, [o[i] for o in outs]), dim=-1)
+                   for i in (0, 2, 3)]
         return cat[0], cat[1], cat[2], g[0], g[1], g[2], acc
 
     return step

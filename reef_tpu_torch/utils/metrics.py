@@ -4,7 +4,10 @@ Mirrors the reference metrics crate (reference metrics/metrics.rs):
 restartable wall-clock timers (`tic`/`stop`), constraint counts (`r1cs`),
 byte sizes (`space`), flushed to CSV rows
 [type, component, test, value, metric_type] (metrics.rs:135).
-Components: Compiler, Prover, Solver, Verifier, CommitmentGen, MSM, Host.
+Components: Compiler, Prover, Solver, Verifier, CommitmentGen, MSM, Host,
+and for the counters of the IPA round engines IPA (`device`, `mesh`,
+`host`) and for the sharded calls of parallel/mesh.py Mesh (spans
+`scalars`, `issue`, `gather`; counters `shards`, `gather_bytes`).
 
 Beyond the reference: spans and event counters recorded where the work
 happens.  `span(component, name)` and `count(component, name, n)` are

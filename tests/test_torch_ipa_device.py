@@ -6,8 +6,9 @@ For a fixed list of challenges its rounds (cL, cR, L, R) and final scalar
 must equal both native host engines' (the port's and the JAX package's
 `IpaNative`); with the blinds fixed, a whole `ipa_prove` forced onto it
 (REEF_DEVICE_MSM=1 on the `cpu` device, the floor lowered) must give the
-host engine's proof bit for bit, which `ipa_verify` accepts; and
-`ipa_prove` must take it only where its gate engages.
+host engine's proof bit for bit, which `ipa_verify` accepts, and so must
+one on the mesh engine (`IpaMesh`) over k CPUs; and `ipa_prove` must take
+each only where its gate engages.
 """
 
 import random
@@ -21,7 +22,7 @@ from reef_tpu.ec import native_msm as ref_native
 from reef_tpu.ec import pasta as ref_pasta
 from reef_tpu_torch.backend import commitment as CM
 from reef_tpu_torch.backend import ipa
-from reef_tpu_torch.ec import ipa_device, native_msm
+from reef_tpu_torch.ec import ipa_device, msm_v3, native_msm
 from reef_tpu_torch.ec.pasta import PALLAS, VESTA
 from reef_tpu_torch.ops import limb
 from reef_tpu_torch.parallel import mesh as PM
@@ -56,7 +57,9 @@ def _proof(gens, cv, n, seed):
     R = [rng.randrange(p) for _ in range(n)]
     rho, r_v = rng.randrange(p), rng.randrange(p)
     v = sum(a * b for a, b in zip(w, R)) % p
-    C_w = cv.add(cv.mul(rho, gens.H), cv.msm(w, gens.G))
+    C_w = cv.add(cv.mul(rho, gens.H),
+                 native_msm.msm_packed(cv, w, gens.packed_G(),
+                                       handle=gens.native_basis()))
     C_v = cv.add(cv.mul(v, G_s), cv.mul(r_v, gens.H))
     blinds = random.Random(seed + 1)
     orig = secrets.randbelow
@@ -73,6 +76,32 @@ def _proof(gens, cv, n, seed):
     return proof, ok, took
 
 
+def _row_msms(ck, basis, scb):
+    """Each row's MSM of the scalar bytes `scb` (n2, 32 rows) over a
+    DeviceBasisV3's points, by the native host MSM, as (3, 8, rows)."""
+    pts = ck.to_affine(basis.arr.permute(0, 3, 1, 2).reshape(-1, 3, 8))
+    raw = scb.numpy().tobytes()
+    width = scb.shape[1]
+    sums = []
+    for r in range(width // 32):
+        sc = [int.from_bytes(raw[width * j + 32 * r:width * j + 32 * r + 32],
+                             "little") for j in range(len(pts))]
+        sums.append(native_msm.msm_native(ck.curve, sc, pts))
+    return torch.from_numpy(ck.to_proj(sums)).permute(1, 2, 0)
+
+
+def _combined(sf, proj, partial):
+    """The combine's output form: the rows' points, then the dots'
+    partials summed."""
+    words = partial.permute(0, 2, 1).reshape(-1, 8).numpy()
+    ints = limb._words_to_ints(words, 32)
+    nb = partial.shape[2]
+    d = [sum(ints[k * nb:(k + 1) * nb]) % sf.p_int for k in (0, 1)]
+    dw = torch.from_numpy(limb._ints_to_words(d, np.uint32)
+                          .view(np.int32).copy())
+    return torch.cat([proj.reshape(-1), dw.reshape(-1)])
+
+
 def _host_msm(monkeypatch):
     """The round's MSM and window combine by the native host MSM over the
     engine's basis points, in the combine's output form:
@@ -83,25 +112,33 @@ def _host_msm(monkeypatch):
         return basis, scb.clone()
 
     def combine(ck, sf, carried, rows, partial):
-        basis, scb = carried
-        pts = ck.to_affine(basis.arr.permute(0, 3, 1, 2)
-                           .reshape(-1, 3, 8))
-        raw = scb.numpy().tobytes()
-        sums = []
-        for r in range(rows):
-            sc = [int.from_bytes(raw[64 * j + 32 * r:64 * j + 32 * r + 32],
-                                 "little") for j in range(len(pts))]
-            sums.append(native_msm.msm_native(ck.curve, sc, pts))
-        proj = torch.from_numpy(ck.to_proj(sums)).permute(1, 2, 0)
-        words = partial.permute(0, 2, 1).reshape(-1, 8).numpy()
-        ints = limb._words_to_ints(words, 32)
-        nb = partial.shape[2]
-        d = [sum(ints[k * nb:(k + 1) * nb]) % sf.p_int for k in (0, 1)]
-        dw = torch.from_numpy(limb._ints_to_words(d, np.uint32)
-                              .view(np.int32).copy())
-        return torch.cat([proj.reshape(-1), dw.reshape(-1)])
+        return _combined(sf, _row_msms(ck, *carried), partial)
 
     monkeypatch.setattr(ipa_device, "msm_windows", windows)
+    monkeypatch.setattr(ipa_device, "combine", combine)
+
+
+def _host_shards(monkeypatch):
+    """On a mesh, each shard's window sums by the native host MSM (window
+    0 of a row holds the row's MSM over the shard's points, its other 31
+    the identity) and the combine of the lead's window sums by the host
+    curve (msm_v3.combine_windows), so that the shards' slices of the
+    scalars and their sum on the lead (`_point_sum`, K1's plain reduce)
+    are what runs: the plain MSM and combine cost ~1 s each a round."""
+    def windows(ck, basis, scb):
+        rows = scb.shape[1] // 32
+        out = ck.ident_t(scb.device)[:, :, None].expand(
+            3, 8, 32 * rows).clone()
+        out[:, :, ::32] = _row_msms(ck, basis, scb)
+        return out
+
+    def combine(ck, sf, accs, rows, partial):
+        pts = [msm_v3.combine_windows(ck, accs[:, :, 32 * r:32 * r + 32])
+               for r in range(rows)]
+        proj = torch.from_numpy(ck.to_proj(pts)).permute(1, 2, 0)
+        return _combined(sf, proj, partial)
+
+    monkeypatch.setattr(PM, "msm_windows", windows)
     monkeypatch.setattr(ipa_device, "combine", combine)
 
 
@@ -146,10 +183,48 @@ def test_device_engine_equals_host(case, cpu_engine, monkeypatch):
     assert dev == host
 
 
-# where ipa_prove's round engine is the device's: REEF_DEVICE_MSM=1 on a
-# one-device mesh at n >= IPA_DEVICE_MIN_N; every other case the host's
+# (curve, mesh of k CPUs, log2 n, log2 of the basis): n = 2^10 =
+# IPA_DEVICE_MIN_N; a vector half its basis, so two of the four shards
+# hold none of its points and are skipped; shards of 64 points, which
+# their cards pad to 128
+MESH_CASES = [(name, k, 10, 10) for name in CURVES for k in (2, 4)] + [
+    ("pallas", 4, 10, 11), ("vesta", 4, 8, 8)]
+
+
+@pytest.mark.parametrize("case", MESH_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_mesh_engine_equals_host(case, cpu_engine, monkeypatch):
+    """A whole ipa_prove on the mesh engine (`IpaMesh` over the gens'
+    sharded basis, REEF_DEVICE_MSM=1 on a mesh of k CPUs) against the
+    host engine's, blinds fixed: the same proof, bit for bit, which
+    `ipa_verify` accepts; no whole basis is uploaded."""
+    name, k, log_n, log_b = case
+    if native_msm._load() is None:
+        pytest.skip("native msm unavailable")
+    _host_shards(monkeypatch)
+    cv = CURVES[name][0]
+    n = 1 << log_n
+    monkeypatch.setattr(CM, "IPA_DEVICE_MIN_N", min(n, CM.IPA_DEVICE_MIN_N))
+    gens = CM.PedersenGens(cv, b"test_torch_ipa_device", 1 << log_b)
+    monkeypatch.setattr(PM, "_PROCESS_MESH",
+                        PM.make_mesh(devices=["cpu"] * k))
+    monkeypatch.setenv("REEF_DEVICE_MSM", "0")
+    host, host_ok, host_took = _proof(gens, cv, n, 7)
+    monkeypatch.setenv("REEF_DEVICE_MSM", "1")
+    mesh, mesh_ok, mesh_took = _proof(gens, cv, n, 7)
+    assert (host_took, mesh_took) == ({"host": 1}, {"mesh": 1})
+    assert host_ok and mesh_ok
+    assert mesh == host
+    assert gens._device_basis is None
+    assert len(gens._sharded_basis.shards) == k
+
+
+# where ipa_prove's round engine is on the card: REEF_DEVICE_MSM=1 at
+# n >= IPA_DEVICE_MIN_N outside a pinned thread, `IpaDevice` on a
+# one-device mesh and `IpaMesh` on a larger one; every other case the
+# host's
 GATES = ["device", "below_floor", "device_msm_off", "pinned_thread",
-         "mesh"]
+         "mesh", "mesh_below_floor", "mesh_pinned_thread"]
 
 
 @pytest.mark.parametrize("gate", GATES)
@@ -161,15 +236,15 @@ def test_round_engine_gate(gate, cpu_engine, monkeypatch):
     gens = CM.PedersenGens(PALLAS, b"test_torch_ipa_device", n)
     w, R = list(range(1, n + 1)), list(range(n, 0, -1))
     monkeypatch.setattr(CM, "IPA_DEVICE_MIN_N",
-                        2 * n if gate == "below_floor" else n)
+                        2 * n if gate.endswith("below_floor") else n)
     monkeypatch.setenv("REEF_DEVICE_MSM",
                        "0" if gate == "device_msm_off" else "1")
     monkeypatch.setattr(PM, "_PROCESS_MESH", PM.make_mesh(
-        devices=["cpu"] * (2 if gate == "mesh" else 1)))
+        devices=["cpu"] * (2 if gate.startswith("mesh") else 1)))
     got = {}
 
     def choose():
-        if gate == "pinned_thread":
+        if gate.endswith("pinned_thread"):
             CM.pin_host_msm()
         mt = metrics.Metrics()
         with metrics.recording(mt):
@@ -180,10 +255,14 @@ def test_round_engine_gate(gate, cpu_engine, monkeypatch):
     th = threading.Thread(target=choose)
     th.start()
     th.join(timeout=60)
-    want = ipa_device.IpaDevice if gate == "device" else \
-        native_msm.IpaNative
+    took = gate if gate in ("device", "mesh") else "host"
+    want = {"device": ipa_device.IpaDevice, "mesh": ipa_device.IpaMesh,
+            "host": native_msm.IpaNative}[took]
     assert type(got["engine"]) is want
-    assert got["took"] == {"device" if gate == "device" else "host": 1}
+    assert got["took"] == {took: 1}
+    if took == "mesh":        # over the sharded basis, with no whole one
+        assert got["engine"].basis is gens._sharded_basis
+        assert gens._device_basis is None
     got["engine"].close()
 
 

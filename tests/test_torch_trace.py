@@ -36,6 +36,11 @@ READERS = {
     "verifier.ivc_s": [("Verifier", "ivc_check")],
     "host.gc_s.prove": [("Host", "gc")],
 }
+# the mesh's spans and counters (parallel/mesh.py), on a mesh only, and
+# the readers of two of the spans
+MESH_SPANS = [("Mesh", "scalars"), ("Mesh", "issue"), ("Mesh", "gather")]
+MESH_READERS = {"mesh.issue_s.prove": ("Mesh", "issue"),
+                "mesh.gather_s.prove": ("Mesh", "gather")}
 # (child, parent): every child span on the request thread lies inside one
 # of the parent's spans
 NESTED = [
@@ -79,15 +84,15 @@ def _rows(path):
         return list(csv.reader(fh))
 
 
-def _bench():
-    """The benchmark's `Run`, its CSV reader and the readers above."""
+def _bench(names=READERS):
+    """The benchmark's `Run`, its CSV reader and the readers of `names`."""
     sys.path.insert(0, BENCH)
     try:
         from harness import loop, manifest, trace
     finally:
         sys.path.remove(BENCH)
     return (loop.Run, trace.read_stages,
-            {name: manifest.metric_reader(name) for name in READERS})
+            {name: manifest.metric_reader(name) for name in names})
 
 
 def _inside(child, parents):
@@ -120,6 +125,8 @@ def test_metrics_csv_carries_the_spans_and_counters(e2e_argv, frequent_gc,
             if key[0] != "MSM":         # no device MSM on the host routes
                 assert times[key] > 0, key
     assert counts[("Host", "gc_collections")] > 0
+    # one device: nothing of the mesh
+    assert not [k for k in list(times) + list(counts) if k[0] == "Mesh"]
     assert counts[("Prover", "fold_steps")] >= 1
     # every IPA on the host engine: the two Spartan proofs, the Hyrax
     # opening and the CAP's two
@@ -175,6 +182,61 @@ def test_metrics_csv_carries_the_spans_and_counters(e2e_argv, frequent_gc,
                for role in ("commit", "prove", "verify")], {})
     for name, reader in readers.items():
         assert reader.read(run) > 0, name
+
+
+@pytest.mark.parametrize("k", [4, 1])
+def test_mesh_spans_and_counters_only_on_a_mesh(k, monkeypatch, tmp_path):
+    """A commit MSM on the device route and an IPA on the round engine
+    the gate takes (REEF_DEVICE_MSM=1, the kernels' plain versions on CPU
+    tensors): on a mesh of four CPUs the sharded MSM and `IpaMesh` record
+    the mesh's spans and counters, which the `--metrics` CSV carries to
+    the benchmark's readers; on one device (`msm_device_v3`, `IpaDevice`)
+    none of them."""
+    from reef_tpu_torch.backend import commitment as CM
+    from reef_tpu_torch.backend import ipa
+    from reef_tpu_torch.ec.pasta import PALLAS
+    from reef_tpu_torch.parallel import mesh as PM
+    monkeypatch.setattr(device, "_SELECTED", None)
+    device.select("cpu")
+    monkeypatch.setenv("REEF_DEVICE_MSM", "1")
+    values = list(range(1, 9))
+    monkeypatch.setattr(CM, "DEVICE_MSM_MIN_N", len(values))
+    monkeypatch.setattr(CM, "IPA_DEVICE_MIN_N", 2)
+    monkeypatch.setattr(PM, "_PROCESS_MESH",
+                        PM.make_mesh(devices=["cpu"] * k))
+    gens = CM.PedersenGens(PALLAS, b"test_torch_trace", len(values))
+    mt = metrics.Metrics()
+    with metrics.recording(mt):
+        assert gens.commit(values, 0) == PALLAS.msm(values, gens.G)
+        eng = ipa._round_engine(gens, values[:4], values[4:])
+        for x in (5, 7):
+            eng.cross()
+            eng.fold(x)
+        eng.final()
+        eng.close()
+    took = {name for comp, name in mt.events if comp == "IPA"}
+    mesh = [key for key in list(mt.timers) + list(mt.events)
+            if key[0] == "Mesh"]
+    assert mt.events[("MSM", "basis_upload")] == 1
+    if k == 1:
+        assert took == {"device"} and not mesh
+        return
+    assert took == {"mesh"}
+    for key in MESH_SPANS:
+        assert mt.timers[key] > 0, key
+    # the MSM's four shards of two points; the IPA's vector of four fills
+    # two of them, each round; the window sums gathered, (3, 8, 32) int32
+    # an MSM's shard and (3, 8, 64) an IPA's
+    assert mt.events[("Mesh", "shards")] == 4 + 2 * 2
+    assert mt.events[("Mesh", "gather_bytes")] == \
+        4 * 3 * 8 * 32 * 4 + 2 * 2 * 3 * 8 * 64 * 4
+    mt.write_csv(str(tmp_path / "m.csv"))
+    Run, read_stages, readers = _bench(MESH_READERS)
+    run = Run([{"role": "prove",
+                "stages": read_stages(str(tmp_path / "m.csv"))}], {})
+    for name, key in MESH_READERS.items():
+        assert readers[name].read(run) == \
+            int(mt.timers[key] * 1e6) / 1e6 > 0, name
 
 
 def test_without_metrics_nothing_records(e2e_argv, monkeypatch):

@@ -85,8 +85,8 @@ def main(argv=None) -> int:
                   _k=meth):
             t0 = time.perf_counter()
             out = _f(self, *a)
-            if self.stream is not None:
-                self.stream.synchronize()
+            for s in self.streams:
+                s.synchronize()
             phase[_k].append(time.perf_counter() - t0)
             return out
         setattr(ipa_device.IpaDevice, meth, timed)

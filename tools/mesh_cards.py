@@ -3,6 +3,7 @@
 of a node.
 
     python3 tools/mesh_cards.py      # on a node with two cards or more
+    python3 tools/mesh_cards.py --ipa-only cuda:0 cuda:0 cuda:0 cuda:0
 
 Builds the kernels, holds K1 against its plain version at the shapes this
 mesh adds (chip_smoke.py's `padd` phase with `mesh_path_shapes`), then
@@ -14,10 +15,20 @@ with cuda:0 alone as the process mesh, then warm E2E_PAIRS times each,
 alternating cuda:0 alone and every card as the process mesh (each run's
 wall and the host seconds of its device MSMs and device sumchecks); on
 the mesh it must prove and verify through sharded_msm and the sharded
-sumcheck rounds with K1, K2, K5 and K6 launched.  Prints one JSON line
-per phase, then each card's name and power limit, then
-{"ok": true, "cards": N}.  Exits non-zero, printing no result, where
-torch sees fewer than two CUDA devices.
+sumcheck rounds with K1, K2, K5 and K6 launched.  Then the phase
+`ipa_mesh`: at the e2e's sizes (Pallas 2^16, Vesta 2^14) a whole
+`ipa_prove` on the mesh engine (ec/ipa_device.py `IpaMesh` over the
+sharded basis) must equal the host engine's, every L, R and the final
+scalar, blinds seeded alike; and a round's milliseconds (cross and fold,
+to the end of their work; medians over IPA_REPS IPAs) on the mesh engine
+and on `IpaDevice` on the lead (cuda:0) alone, with the mesh engine's
+`Mesh` spans a round.  Prints one JSON line per phase, then each card's name and power
+limit, then {"ok": true, "cards": N}.  Exits non-zero, printing no
+result, where torch sees fewer than two CUDA devices.
+
+`--ipa-only DEV ...` runs the phase `ipa_mesh` alone on a mesh of the
+devices named (repeats allowed: cuda:0 four times holds four shards on
+one card).
 """
 
 from __future__ import annotations
@@ -33,13 +44,129 @@ import time
 from functools import partial
 
 E2E_PAIRS = 3          # warm e2e runs on cuda:0 alone and on the mesh, each
+IPA_REPS = 3           # timed IPAs an engine, after one untimed
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
-def main() -> int:
+def _round_ms(torch, eng, xs, mt) -> float:
+    """Milliseconds a round of the engine, to the end of its work; its
+    spans into `mt`."""
+    from reef_tpu_torch.utils import metrics
+    for s in eng.streams:
+        s.synchronize()
+    t0 = time.perf_counter()
+    with metrics.recording(mt):
+        for x in xs:
+            eng.cross()
+            eng.fold(x)
+    for s in eng.streams:
+        s.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / len(xs)
+    eng.final()
+    eng.close()
+    return ms
+
+
+def phase_ipa_mesh(torch, mesh_devs) -> dict:
+    """The mesh engine against the host engine, byte for byte, and a
+    round on each device engine (module docstring)."""
+    import statistics
+    import chip_smoke as CS
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import ipa_sweep
+    from reef_tpu_torch.backend import commitment as CM
+    from reef_tpu_torch.backend import ipa
+    from reef_tpu_torch.ec import ipa_device
+    from reef_tpu_torch.ec.pasta import PALLAS, VESTA
+    from reef_tpu_torch.parallel import mesh as PM
+    from reef_tpu_torch.utils import metrics
+    t0 = time.perf_counter()
+    mesh = PM.make_mesh(devices=mesh_devs)
+    single = PM.make_mesh(devices=mesh_devs[:1])
+    out = {}
+    prev = os.environ.get("REEF_DEVICE_MSM")
+    try:
+        for cname, log in CS.IPA_MAIN:
+            cv = {"pallas": PALLAS, "vesta": VESTA}[cname]
+            n, p = 1 << log, cv.order
+            rng = random.Random(20261018 + log)
+            gens = CM.PedersenGens(cv, b"reef/g/pv", n)
+            G_s = CM.shared_scalar_gens(cv).G[0]
+            w = [rng.randrange(p) for _ in range(n)]
+            R = [rng.randrange(p) for _ in range(n)]
+            rho, r_v = rng.randrange(p), rng.randrange(p)
+            v = sum(a * b for a, b in zip(w, R)) % p
+            os.environ["REEF_DEVICE_MSM"] = "0"
+            C_w = gens.commit(w, rho)
+            C_v = cv.add(cv.mul(v, G_s), cv.mul(r_v, gens.H))
+            inputs = (G_s, w, rho, R, v, r_v, C_w, C_v)
+            _, host = ipa_sweep.prove(CM, ipa, gens, inputs, 1)
+            os.environ["REEF_DEVICE_MSM"] = "1"
+            PM.select(mesh)
+            mt = metrics.Metrics()
+            with metrics.recording(mt):
+                _, on_mesh = ipa_sweep.prove(CM, ipa, gens, inputs, 1)
+            took = {k[1]: c for k, c in mt.events.items() if k[0] == "IPA"}
+            CS.require(took == {"mesh": 1},
+                       f"ipa_mesh: {cname} took the engines {took}")
+            CS.require(gens._device_basis is None,
+                       "ipa_mesh: the mesh engine uploaded a whole basis")
+            CS.require(on_mesh == host,
+                       f"ipa_mesh: the mesh engine's proof differs from "
+                       f"the host engine's at {cname} 2^{log}")
+            os.environ["REEF_DEVICE_MSM"] = "0"
+            CS.require(ipa.ipa_verify(gens, G_s, R, C_w, C_v, on_mesh,
+                                      CM.Transcript(b"sweep")),
+                       f"ipa_mesh: no verify at {cname} 2^{log}")
+            xs = [rng.randrange(1, p) for _ in range(log)]
+            times = {"mesh": [], "lead": []}
+            spans = []
+            for _ in range(IPA_REPS + 1):
+                for name in times:
+                    PM.select(mesh if name == "mesh" else single)
+                    eng = (ipa_device.IpaMesh(gens, w, R, mesh)
+                           if name == "mesh"
+                           else ipa_device.IpaDevice(gens, w, R))
+                    mt = metrics.Metrics()
+                    times[name].append(_round_ms(torch, eng, xs, mt))
+                    if name == "mesh":
+                        spans.append({k[1]: 1e3 * s / log
+                                      for k, s in mt.timers.items()
+                                      if k[0] == "Mesh"})
+            out[cname] = {
+                "log_n": log, "proof_equal": True,
+                "rounds": len(on_mesh.Ls),
+                "mesh_round_ms": statistics.median(times["mesh"][1:]),
+                "lead_round_ms": statistics.median(times["lead"][1:]),
+                "mesh_runs_ms": times["mesh"][1:],
+                "lead_runs_ms": times["lead"][1:],
+                "mesh_span_ms_a_round": spans[-1]}
+            gens._device_basis = gens._sharded_basis = None
+            torch.cuda.empty_cache()
+    finally:
+        PM.select(None)
+        if prev is None:
+            os.environ.pop("REEF_DEVICE_MSM", None)
+        else:
+            os.environ["REEF_DEVICE_MSM"] = prev
+    CS.emit("ipa_mesh", t0, devices=list(mesh_devs), **out)
+    return out
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     import torch
+    if argv[:1] == ["--ipa-only"]:
+        import chip_smoke as CS
+        from reef_tpu_torch.utils import device
+        device.select("cuda")
+        CS.build_all()
+        phase_ipa_mesh(torch, argv[1:])
+        print(json.dumps({"ok": True, "cards": torch.cuda.device_count()}),
+              flush=True)
+        return 0
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         print("mesh_cards: torch sees fewer than two CUDA devices",
               file=sys.stderr)
@@ -122,6 +249,7 @@ def main() -> int:
             single_card_route_s=routes["single"], mesh_route_s=routes["mesh"],
             mesh_calls=calls, mesh_launches=launches,
             poseidon_consts_on=consts)
+    phase_ipa_mesh(torch, mesh_devs)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip(),
