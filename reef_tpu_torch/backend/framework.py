@@ -225,21 +225,27 @@ def pub_setup(safa: SAFA, commit: ReefCommitment, batch_size: int,
             mc = _VerifierMerkle(commit.merkle_root, commit.udoc_len)
     # the circuit stack is deterministic in the table's structural
     # parameters + the baked-in commitment constants: cache it so a
-    # prover+verifier pair (or a test suite) builds it once
+    # prover+verifier pair (or a test suite) builds it once.  The doc
+    # commitment hash is one constant in a few places (StepCircuit
+    # .hash_sites), so the key keeps only whether it is zero (a zero hash
+    # leaves A's entry out) and a hit under another hash restamps it:
+    # every document of one structure shares the circuit, the shape, the
+    # native witness program and matrices, and the committers with their
+    # device bases
+    h = commit.doc_commit_hash()
     key = (tt.num_states, tt.num_chars, tt.max_offsets, len(tt.table),
            tuple(tt.table[:2]), tt.doc_len(), tt.hybrid_len,
            tt.batch_size, tt.max_stack, tt.max_branches, tt.kid_padding,
            tt.eps_code, tt.eof_code, tt.star_offset, tt.ep_num,
            tt.udoc_len, tt.doc_subset,
            tuple(tt.proj_chunk_idx) if tt.proj_chunk_idx else None,
-           commit.doc_commit_hash(), commit.merkle_root,
+           h != 0, commit.merkle_root,
            mc.height if mc else None, merkle, hybrid)
     cached = _CIRCUIT_CACHE.get(key)
     if cached is None:
         count("Compiler", "circuit_cache_miss")
         with span("Compiler", "circuit"):
-            circuit = StepCircuit(tt, commit.doc_commit_hash(),
-                                  merkle_commitment=mc)
+            circuit = StepCircuit(tt, h, merkle_commitment=mc)
             aug = AugmentedPrimary(circuit)
             shape = R1CSShape(aug.compiled, aug.io_names)
             wc = VectorCommitter(shape.w_pad)
@@ -250,6 +256,10 @@ def pub_setup(safa: SAFA, commit: ReefCommitment, batch_size: int,
     else:
         count("Compiler", "circuit_cache_hit")
         circuit, aug, shape, wc, ec = cached
+        if circuit.doc_commit_hash != h % f.p:
+            count("Compiler", "circuit_restamp")
+            with span("Compiler", "restamp"):
+                shape.restamp_A(circuit.restamp_hash(h))
         # rebind the fresh table (carries udoc for witness generation)
         circuit.tt = tt
         aug.step.tt = tt

@@ -130,13 +130,61 @@ class R1CSShape:
         self._io_idx = io_idx
         self._wit_cols_c = None       # lazy ctypes i64 array for gathers
 
-        h = hashlib.sha256()
-        for rows, cols, vals in self._packed_mats:
+        # (A's value index, sha256 state hashed up to it) for restamp_A
+        self._digest_prefix = None
+        self._rehash(0)
+
+    def _rehash(self, first: int):
+        """digest = sha256 of the packed matrices, resumed from the state
+        kept before A's value `first` (A's values from `first` on may have
+        changed since it was kept, nothing before them)."""
+        rows, cols, vals = self._packed_mats[0]
+        vals = memoryview(vals)
+        pre = self._digest_prefix
+        if pre is None or pre[0] > first:
+            h = hashlib.sha256()
+            h.update(len(rows).to_bytes(8, "little"))
+            h.update(rows.tobytes())
+            h.update(cols.tobytes())
+            pre = (0, h)
+        if pre[0] < first:
+            h = pre[1].copy()
+            h.update(vals[32 * pre[0]:32 * first])
+            pre = (first, h)
+        self._digest_prefix = pre
+        h = pre[1].copy()
+        h.update(vals[32 * first:])
+        for rows, cols, vals in self._packed_mats[1:]:
             h.update(len(rows).to_bytes(8, "little"))
             h.update(rows.tobytes())
             h.update(cols.tobytes())
             h.update(vals)
         self.digest = int.from_bytes(h.digest()[:16], "big")
+
+    def restamp_A(self, u_coeffs: Dict[int, int]):
+        """Give A's `u` entry (column w_pad, the circuit's ONE wire) in
+        each row of `u_coeffs` a new coefficient, as a shape built from a
+        circuit holding it would have: the packed values, the native
+        matrix (a copy with those values) and the digest are replaced,
+        the tuple view dropped.  Rows, columns, B and C are unchanged."""
+        import bisect
+        p = self.f.p
+        rows, cols, vals = self._packed_mats[0]
+        at = {}
+        for r, v in u_coeffs.items():
+            lo, hi = bisect.bisect_left(rows, r), bisect.bisect_right(rows, r)
+            (i,) = [i for i in range(lo, hi) if cols[i] == self.w_pad]
+            at[i] = v % p
+        buf = bytearray(vals)
+        for i, v in at.items():
+            buf[32 * i:32 * i + 32] = v.to_bytes(32, "little")
+        self._packed_mats = ((rows, cols, bytes(buf)),) + \
+            self._packed_mats[1:]
+        self._coo[0] = None
+        mats = getattr(self, "_fv_mats", None)
+        if mats is not None:
+            self._fv_mats = (mats[0].with_values(at),) + mats[1:]
+        self._rehash(min(at))
 
     def _mat(self, k: int) -> List[Tuple[int, int, int]]:
         if self._coo[k] is None:

@@ -219,6 +219,38 @@ class ConstraintSystem:
         p = self.f.p
         return sum(c * z[k] for k, c in lc.items()) % p
 
+    def mark(self) -> Tuple[int, int, int]:
+        """(constraint items, rows, computer items) so far: where
+        `binding_of` starts to search."""
+        return (len(self.constraints.items()), len(self.constraints),
+                len(self.computers.items()))
+
+    def binding_of(self, lc: LC, since: Tuple[int, int, int]
+                   ) -> Tuple[int, int, int]:
+        """(row, constraint item, computer item) of the aux wire that a
+        gadget added after `since` bound to the LC object `lc` (a
+        Poseidon stamp's input binding: the wire's ("lc", lc) computer and
+        its enforce_eq row)."""
+        c_item, row, k_item = since
+        comps = self.computers.items()
+        for k in range(k_item, len(comps)):
+            it = comps[k]
+            if it[0] == "c" and it[3] is not None and it[3][1] is lc:
+                w = it[1]
+                break
+        else:
+            raise ValueError("no wire bound to this LC")
+        cons = self.constraints.items()
+        for j in range(c_item, len(cons)):
+            it = cons[j]
+            if it[0] == "s":
+                row += len(it[1].constraints)
+            elif w in it[1]:
+                return row, j, k
+            else:
+                row += 1
+        raise ValueError("no binding row")
+
     # -- constraints -------------------------------------------------------
 
     def enforce(self, a: LC, b: LC, c: LC):

@@ -58,8 +58,33 @@ class StepCircuit:
         self.hyb_l = logmn(tt.hybrid_len) if tt.hybrid_len else 0
         cs = ConstraintSystem(F.FQ)
         self.cs = cs
+        # (row, constraint item, computer item) of each place a nonzero
+        # doc commitment hash entered the circuit
+        self.hash_sites: List[tuple] = []
         self._build()
         self.compiled = CompiledCircuit(cs, self.output_lcs)
+
+    def restamp_hash(self, h: int) -> Dict[int, int]:
+        """Write another nonzero doc commitment hash into the circuit, as
+        a build under `h` would have it: each site's binding row (A holds
+        -h on the ONE wire), its computer's LC (the closure and the op
+        share the dict) and the native witness program's coefficient.
+        Returns {row: A's new ONE-wire coefficient} for the shape."""
+        cs = self.cs
+        h %= cs.f.p
+        assert h and self.doc_commit_hash, "a zero hash has its own entry"
+        prog = getattr(cs, "_native_wit_prog", None)
+        rows = {}
+        for row, j, k in self.hash_sites:
+            a = cs.constraints.items()[j][1]
+            lc = cs.computers.items()[k][3][1]
+            assert a[0] == -lc[0]
+            a[0], lc[0] = -h, h
+            if prog:
+                prog.set_const(k, h)
+            rows[row] = -h
+        self.doc_commit_hash = h
+        return rows
 
     # ------------------------------------------------------------------
 
@@ -381,10 +406,16 @@ class StepCircuit:
         io = nlookup_pattern(m, sc_l, num_cqs, doc_hash is not None, tag)
         from .costs import NL_RATE
         sponge = CircuitSponge(cs, io, rate=NL_RATE)
-        absorb = [] if doc_hash is None else [lc_const(self.doc_commit_hash)]
-        absorb += combined + vs + run_q + [run_v]
-        sponge.absorb(absorb)
+        since = cs.mark()
+        if doc_hash is not None:
+            sponge.absorb([lc_const(self.doc_commit_hash)])
+            lane = sponge.state[1]
+        sponge.absorb(combined + vs + run_q + [run_v])
         claim_r = sponge.squeeze(1)[0]
+        if doc_hash is not None and self.doc_commit_hash:
+            # the permutation bound the hash's lane to an aux wire: its row
+            # and computer are where `restamp_hash` writes another hash
+            self.hash_sites.append(cs.binding_of(lane, since))
 
         # lhs Horner: sum r^i v_i + r^{m+1} run_v
         lhs = cs.horner([lc_const(0)] + vs + [run_v], claim_r)

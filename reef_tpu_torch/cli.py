@@ -27,7 +27,8 @@ than the wall of the stage around it):
   CommitmentGen generation; doc_transform, rows (Hyrax row MSMs),
                row_hash
   Compiler     regex_normalization+fa_builder; r1cs_init (pub_setup),
-               table, circuit (their cache misses)
+               table, circuit (their cache misses), restamp (a circuit
+               cache hit under another document commitment hash)
   Solver       fa_solver+wit (solver and folds); solve (each batch on
                the request thread), wait_fold (blocked on the fold
                worker's queue and join)
@@ -47,7 +48,7 @@ than the wall of the stage around it):
                consistency, wait_ivc
 
 `count` rows (unit `events`): Host gc_collections; Compiler
-table_cache_hit/_miss, circuit_cache_hit/_miss; Solver
+table_cache_hit/_miss, circuit_cache_hit/_miss, circuit_restamp; Solver
 device_cache_hit/_miss; Prover fold_steps; MSM basis_upload; IPA device,
 mesh, host (the round engine each IPA took); Mesh shards, gather_bytes.
 `constraints` and `space` rows as in the reference.

@@ -15,7 +15,7 @@ domain buffers ("_m") stay opaque to python and are cached across calls
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from . import field as F
 
@@ -251,6 +251,17 @@ class SparseMat:
         self.vals_m = out.raw
         self.max_col = max(cols) if n else 0
         return self
+
+    def with_values(self, at: Dict[int, int]) -> "SparseMat":
+        """A copy whose entries `at` (index -> canonical value) hold new
+        values; the index arrays are shared, the values copied."""
+        out = SparseMat.__new__(SparseMat)
+        out.__dict__.update(self.__dict__)
+        buf = bytearray(self.vals_m)
+        for i, v in at.items():
+            buf[32 * i:32 * i + 32] = to_mont([v], self.p)
+        out.vals_m = bytes(buf)
+        return out
 
     def matvec(self, z: Sequence[int], n_out: int) -> "PackedVec":
         lib = _load()
@@ -519,7 +530,9 @@ class WitnessProgram:
 
         items = cs.computers.items() if hasattr(cs.computers, "items") \
             else [("c", idx, fn, op) for idx, fn, op in cs.computers]
-        for it in items:
+        # lc computer item -> its lc id, for set_const
+        self._item_lc: Dict[int, int] = {}
+        for pos, it in enumerate(items):
             if it[0] == "s":
                 _, tpl, _m, m_np, _cs = it
                 flush_py()
@@ -557,6 +570,8 @@ class WitnessProgram:
             else:                    # lc / inv0 / eq0
                 a = add_lc(op[1])
                 b = 0
+                if kind == 0:
+                    self._item_lc[pos] = a
             cur_native.extend((kind, idx, a, b))
         flush_native()
         flush_py()
@@ -571,6 +586,19 @@ class WitnessProgram:
         else:
             self.lc_cols = _c_i64([])
         self.lc_coeff_m = b"".join(coeff_chunks)
+
+    def set_const(self, item: int, v: int):
+        """Write v as the ONE wire's coefficient in the LC of the ("lc",
+        LC) computer at item `item` (the LC has that term); the
+        coefficient buffer is replaced, not written into."""
+        a = self._item_lc[item]
+        for e in range(self.lc_off[a], self.lc_off[a + 1]):
+            if self.lc_cols[e] == 0:
+                buf = bytearray(self.lc_coeff_m)
+                buf[32 * e:32 * e + 32] = to_mont([v], self.p)
+                self.lc_coeff_m = bytes(buf)
+                return
+        raise ValueError("the LC has no ONE-wire term")
 
     def run(self, z: List[int], inputs) -> List[int]:
         buf = self._run_buf(z)

@@ -8,6 +8,9 @@ Components: Compiler, Prover, Solver, Verifier, CommitmentGen, MSM, Host,
 and for the counters of the IPA round engines IPA (`device`, `mesh`,
 `host`) and for the sharded calls of parallel/mesh.py Mesh (spans
 `scalars`, `issue`, `gather`; counters `shards`, `gather_bytes`).
+Compiler's span `restamp` and counter `circuit_restamp` mark a circuit
+cache hit under another document commitment hash (backend/framework.py
+`pub_setup`), beside its counters `circuit_cache_hit`/`_miss`.
 
 Beyond the reference: spans and event counters recorded where the work
 happens.  `span(component, name)` and `count(component, name, n)` are

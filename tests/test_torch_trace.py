@@ -184,6 +184,28 @@ def test_metrics_csv_carries_the_spans_and_counters(e2e_argv, frequent_gc,
         assert reader.read(run) > 0, name
 
 
+def test_a_new_document_restamps_the_circuit(e2e_argv):
+    """A second `--e2e` on another document of the same length: its prove
+    finds the first one's circuit stack and restamps its commitment hash
+    (count and span, inside `r1cs_init`), its verify hits without one."""
+    cli.main(e2e_argv)
+    with open("doc.txt", "w") as fh:
+        fh.write("CATTGGACCA")
+    cli.main(e2e_argv + ["--metrics", "m.csv"])
+    rows = _rows("m.csv")
+    times = {(r[1], r[2]): int(r[3]) for r in rows if r[0] == "time"}
+    counts = {(r[1], r[2]): int(r[3]) for r in rows if r[0] == "count"}
+    assert counts[("Compiler", "circuit_restamp")] == 1
+    assert counts[("Compiler", "circuit_cache_hit")] == 2
+    assert ("Compiler", "circuit_cache_miss") not in counts
+    assert times[("Compiler", "restamp")] > 0
+    assert ("Compiler", "circuit") not in times
+    spans = metrics.last_spans()
+    kids = [s for s in spans if s[:2] == ("Compiler", "restamp")]
+    parents = [s for s in spans if s[:2] == ("Compiler", "r1cs_init")]
+    assert len(kids) == 1 and _inside(kids[0], parents)
+
+
 @pytest.mark.parametrize("k", [4, 1])
 def test_mesh_spans_and_counters_only_on_a_mesh(k, monkeypatch, tmp_path):
     """A commit MSM on the device route and an IPA on the round engine
