@@ -102,8 +102,8 @@ script exits non-zero and prints no result:
           forced).  Exact; each part timed beside its single-device
           counterpart on the same card (with shards that share a card,
           what splitting costs, not scaling)
-  e2e     `cli dna --e2e` in-process with REEF_DEVICE_MSM=1 and
-          REEF_DEVICE_SUMCHECK=auto on the 1 MB document of the
+  e2e     `cli dna --e2e` in-process with the routes at their defaults
+          (backend/routes.py) on the 1 MB document of the
           reference's dna.sh workload (seed 42); must prove and verify,
           and every kernel of its path (K1, K2, K5, K6, the IPA
           rounds'; K3 and K4 run off it, in their own phases) must have
@@ -115,7 +115,7 @@ script exits non-zero and prints no result:
           chunk and one an MSM; one coefficient launch a round).  The
           device MSMs and the device sumcheck are timed; then the same
           run is timed again in the warm process, with both routes on the
-          host (REEF_DEVICE_MSM=0, REEF_DEVICE_SUMCHECK=0) and on the
+          host (the policy routes.ALL_HOST) and on the
           card, and once more on the card under torch.profiler: each
           kernel's device time over one warm e2e, by name.  Last, the same
           run on the mesh phase's devices as the process mesh: it must
@@ -1052,7 +1052,7 @@ def mesh_path_shapes(m: int) -> dict:
             reduce[name] = shape
 
     for name, n in MESH_MSM_N.items():
-        cap = min(msm_v3.default_cap(), _n_local(n, m))
+        cap = min(msm_v3.DEFAULT_CAP, _n_local(n, m))
         log = cap.bit_length() - 1
         caps[name] = [cap] if cap >= msm_v3.TREE_MIN_CAP else []
         if cap < msm_v3.TREE_MIN_CAP:
@@ -1617,33 +1617,27 @@ def dna_argv(work: str, size: int) -> list:
             f"^.{{{size - len(DNA_MOTIF)}}}{DNA_MOTIF}.*", "-b", "0"]
 
 
-def run_e2e(torch, work: str, argv: list, msm: str, sumcheck: str) -> float:
-    """One in-process commit + prove + verify in `work` with
-    REEF_DEVICE_MSM=msm and REEF_DEVICE_SUMCHECK=sumcheck, which must
-    verify; returns its wall seconds."""
+def run_e2e(torch, work: str, argv: list, host: bool = False) -> float:
+    """One in-process commit + prove + verify in `work`, which must
+    verify, each operation on the route backend/routes.py chooses, or
+    with `host` every one on the host; returns its wall seconds."""
     from reef_tpu_torch import cli
-    routes = ("REEF_DEVICE_MSM", "REEF_DEVICE_SUMCHECK")
+    from reef_tpu_torch.backend import routes
     prev_cwd = os.getcwd()
-    prev_env = {k: os.environ.get(k) for k in routes}
     out = io.StringIO()
     try:
-        os.environ.update(zip(routes, (msm, sumcheck)))
         os.chdir(work)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
+        with contextlib.redirect_stdout(out), \
+                routes.use(routes.ALL_HOST if host else routes.policy()):
             cli.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
     finally:
         os.chdir(prev_cwd)
-        for k, v in prev_env.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     require("Verification PASSED" in out.getvalue(),
-            f"e2e ({msm}, {sumcheck}): proof did not verify:\n"
+            f"e2e (host={host}): proof did not verify:\n"
             + out.getvalue())
     return wall
 
@@ -1726,8 +1720,8 @@ def route_spies(exact: bool = False):
                             copy.deepcopy(out)))
         return out
 
-    def checked_route(self, values):
-        out = orig_route(self, values)
+    def checked_route(self, values, on):
+        out = orig_route(self, values, on)
         key = (self.cv.name, len(values))
         if exact and key not in rec.exact_msms:
             rec.exact_msms.append(key)
@@ -1762,8 +1756,6 @@ def run_serve(torch) -> dict:
     import re
     from reef_tpu_torch import workloads as W
     env = dict(os.environ, PYTHONPATH=W.ROOT)
-    for k in ("REEF_DEVICE_MSM", "REEF_DEVICE_SUMCHECK"):
-        env.pop(k, None)
     t1 = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "reef_tpu_torch.workloads", *SERVE_ARGS],
@@ -1808,7 +1800,7 @@ def phase_workloads(torch) -> dict:
     defaults (auto), then warm on the host and the card, then through one
     serve worker; returns the launches summed over the in-process pass."""
     from reef_tpu_torch import workloads as W
-    from reef_tpu_torch.backend import witness
+    from reef_tpu_torch.backend import routes
     from reef_tpu_torch.utils import cudabuild, nativebuild
     t0 = time.perf_counter()
     work = tempfile.mkdtemp(dir=nativebuild.build_dir())
@@ -1821,7 +1813,7 @@ def phase_workloads(torch) -> dict:
                 argv = W.argv_for(name, size, work, metrics=csv_path)
                 cudabuild.reset_counts()
                 t1 = time.perf_counter()
-                wall = run_e2e(torch, work, argv, "auto", "auto")
+                wall = run_e2e(torch, work, argv)
                 launches = cudabuild.launch_counts()
                 for k, v in launches.items():
                     total[k] = total.get(k, 0) + v
@@ -1844,17 +1836,17 @@ def phase_workloads(torch) -> dict:
             # host against card, warm, on the two largest new shapes, in
             # pairs of alternating order
             warm = {}
-            runs = (("host_routes", ("0", "0")), ("card", ("auto", "auto")))
+            runs = (("host_routes", True), ("card", False))
             for name, pairs in WORKLOAD_WARM.items():
                 warm[name] = {"order": [], "host_routes_wall_s": [],
                               "card_wall_s": [], "host_routes_stages_s": [],
                               "card_stages_s": []}
                 for i in range(2 * pairs):
-                    run, routes = runs[(i + i // 2) % 2]
+                    run, host = runs[(i + i // 2) % 2]
                     csv_path = os.path.join(work, f"{name}_{i}.csv")
                     argv = W.argv_for(name, WORKLOAD_SIZES[name], work,
                                       metrics=csv_path)
-                    wall = run_e2e(torch, work, argv, *routes)
+                    wall = run_e2e(torch, work, argv, host)
                     rec.check()
                     warm[name]["order"].append(run)
                     warm[name][f"{run}_wall_s"].append(wall)
@@ -1872,7 +1864,7 @@ def phase_workloads(torch) -> dict:
             f"workloads: device MSMs {msm_keys} not all held against the "
             f"host ({rec.exact_msms})")
     # every lookup table runs where the auto floor sends it
-    floor = witness.DEVICE_SUMCHECK_MIN_N
+    floor = routes.DEFAULT.sumcheck
     wrong = [(name, tag, n, route) for name, p in per.items()
              for tag, n, route, _ in p["nlookups"]
              if (route == "device") != (n >= floor)]
@@ -1906,12 +1898,12 @@ def phase_options(torch) -> dict:
     (auto), its launches counted from 0; the first device MSM and the
     first device sumcheck of each size held against the host after the
     walls.  Returns the launches summed over the phase."""
-    from reef_tpu_torch.backend import witness
+    from reef_tpu_torch.backend import routes
     from reef_tpu_torch.utils import cudabuild, nativebuild
     t0 = time.perf_counter()
     work = tempfile.mkdtemp(dir=nativebuild.build_dir())
     total, per = {}, {}
-    floor = witness.DEVICE_SUMCHECK_MIN_N
+    floor = routes.DEFAULT.sumcheck
     try:
         with route_spies(exact=True) as rec:
             for opt, (ab, flags, regex) in OPTIONS.items():
@@ -1927,7 +1919,7 @@ def phase_options(torch) -> dict:
                         "-b", "0", *flags]
                 n_msm, n_nl = len(rec.msms), len(rec.nlookups)
                 cudabuild.reset_counts()
-                wall = run_e2e(torch, work, argv, "auto", "auto")
+                wall = run_e2e(torch, work, argv)
                 launches = cudabuild.launch_counts()
                 for k, v in launches.items():
                     total[k] = total.get(k, 0) + v
@@ -2249,7 +2241,7 @@ def main() -> int:
     want = [native_msm.msm_packed(ck.curve, r, gens.packed_G(),
                                   handle=gens.native_basis()) for r in rows]
     require(got == want, "msm rows: device != native host MSM")
-    emit("msm", t0, n=list(MSM_NS), chunk=msm_v3.default_cap(), rows=R,
+    emit("msm", t0, n=list(MSM_NS), chunk=msm_v3.DEFAULT_CAP, rows=R,
          row_n=nr,
          kernel_chunk_ms=kernel_chunk_ms,
          plain_chunk_ms_no_yardstick=plain_chunk_ms, **res)
@@ -2301,7 +2293,7 @@ def main() -> int:
     try:
         with route_spies() as rec:
             cudabuild.reset_counts()
-            wall = e2e("1", "auto")
+            wall = e2e()
             launches = cudabuild.launch_counts()
             # the cold run's own .cmt/.proof pair, for phase reject
             kept = tempfile.mkdtemp(dir=nativebuild.build_dir())
@@ -2314,14 +2306,14 @@ def main() -> int:
             # the same run again, warm (generators, circuits and bases
             # cached in the process): both routes on the host, then on the
             # card
-            host_wall = e2e("0", "0")
+            host_wall = e2e(host=True)
             nl_runs["warm_host_routes"] = taken(rec)
-            warm_wall = e2e("1", "auto")
+            warm_wall = e2e()
             nl_runs["warm"] = taken(rec)
         # once more on the card, under the profiler: device time by kernel
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            prof_wall = e2e("1", "auto")
+            prof_wall = e2e()
         # and on the mesh of the mesh phase: every commit MSM through
         # sharded_msm, the document's sumcheck through sharded_rounds
         PM.select(mesh_devs)
@@ -2329,7 +2321,7 @@ def main() -> int:
         sumcheck_device.sharded_rounds = partial(counted, "sharded_rounds",
                                                  orig_mesh_rounds)
         cudabuild.reset_counts()
-        mesh_wall = e2e("1", "auto")
+        mesh_wall = e2e()
         mesh_launches = cudabuild.launch_counts()
     finally:
         PM.sharded_msm = orig_mesh_msm

@@ -27,14 +27,14 @@ into Fq (replacing nova's PoseidonRO, commitment.rs:190-198).
 from __future__ import annotations
 
 import hashlib
-import threading
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
 from ..ec.pasta import PALLAS, Curve, Point
 from ..ops import field as F
 from ..ops.poseidon import HostSponge, IOPattern
-from ..utils.metrics import count, span
+from ..utils.metrics import span
+from . import routes
 from .costs import logmn, next_power_of_two
 from .sumcheck import verifier_mle_eval
 from .step_circuit import StepCircuit, hide_pattern
@@ -256,59 +256,6 @@ def shared_blinding_gen(cv: Curve = PALLAS) -> Point:
     return _BLIND_H[cv.name]
 
 
-def _device_msm_mode() -> str:
-    """REEF_DEVICE_MSM gate: "0" = host only, "1" = force the device
-    route (on the process mesh's devices, the CPU included: there the
-    kernels' plain versions run), "auto" = engage where the process mesh
-    holds cards (utils.device `accel_device_count`) for commits of at
-    least DEVICE_MSM_MIN_N values."""
-    import os
-    return os.environ.get("REEF_DEVICE_MSM", "auto")
-
-
-_MSM_HOST_PIN = threading.local()
-
-
-def pin_host_msm() -> None:
-    """Pin the CALLING THREAD's Pedersen MSMs to the host path.  The
-    framework's consistency/CAP thread runs concurrently with the
-    CompressedSNARK (framework.py prove overlap); its MSMs are small
-    enough that the host path loses nothing, and keeping them off the
-    card leaves one thread launching device work at a time."""
-    _MSM_HOST_PIN.on = True
-
-
-def _device_msm_on(n: Optional[int] = None) -> bool:
-    if getattr(_MSM_HOST_PIN, "on", False):
-        return False
-    mode = _device_msm_mode()
-    if mode == "1":
-        return True
-    if mode != "auto":
-        return False
-    # the reference engages on `accel_device_count() > 1` or a local
-    # accelerator; every profile of the port but "cpu" is local
-    from ..utils.device import accel_device_count
-    if accel_device_count() == 0:
-        return False
-    return n is None or n >= DEVICE_MSM_MIN_N
-
-
-DEVICE_MSM_MIN_N = 256          # below this the host MSM always wins
-# the least vector length whose IPA rounds run on the card (ec/ipa_device)
-# where the gate engages: below it the native host rounds win or tie
-# (PERF.md section 5, tools/ipa_sweep.py on an H100)
-IPA_DEVICE_MIN_N = 1 << 10
-DEVICE_ROWS_MIN_N = 4096        # tree-kernel shape floor for row batches
-
-
-def _single_accel_device() -> bool:
-    """True when the process mesh has one device (the rows route runs on
-    one device; a mesh takes the sharded MSM instead)."""
-    from ..parallel.mesh import process_mesh
-    return process_mesh().size == 1
-
-
 def _pack_H(cv: Curve, H: Point) -> bytes:
     from ..ec.native_msm import _pack_points
     return bytes(_pack_points([H]))
@@ -318,19 +265,17 @@ class PedersenGens:
     def __init__(self, cv: Curve, label: bytes, n: int):
         self.cv = cv
         self.n = n
-        self._label = label
+        self.label = label
         self._packed = _cached_gens_packed(cv, label, n)
         self._G = None
         self.H = shared_blinding_gen(cv)
-        self._device_basis = None
-        self._sharded_basis = None
 
     def native_basis(self):
         """Native basis handle: points loaded + IFMA-converted once per
         (curve, label, n), shared process-wide — every per-fold commit and
         IPA basis MSM then skips the ~45ms per-call load at 2^16."""
         from ..ec.native_msm import basis_handle
-        return basis_handle(self.cv, (self.cv.name, self._label, self.n),
+        return basis_handle(self.cv, (self.cv.name, self.label, self.n),
                             self._packed)
 
     @property
@@ -347,37 +292,23 @@ class PedersenGens:
         return self._packed
 
     def device_G(self):
-        """Device-resident basis for the Pippenger MSM (ec.msm_v3), on the
-        engine device; cached, one upload per gens set."""
-        if self._device_basis is None:
-            from ..ec.msm import kernels_for
-            from ..ec.msm_v3 import DeviceBasisV3
-            count("MSM", "basis_upload")
-            with span("MSM", "basis_upload"):
-                self._device_basis = DeviceBasisV3(kernels_for(self.cv),
-                                                   self.G)
-        return self._device_basis
+        """The basis on the engine device (ec.msm_v3), from the process's
+        store of device bases (backend/routes.py)."""
+        return routes.basis(self)
 
     def sharded_G(self, mesh=None):
-        """The basis split over `mesh` (default: the process mesh) for the
-        sharded MSM; cached, one upload per gens set and mesh."""
-        from ..parallel.mesh import ShardedBasis, process_mesh
-        if mesh is None:
-            mesh = process_mesh()
-        if self._sharded_basis is None or self._sharded_basis.mesh != mesh:
-            from ..ec.msm import kernels_for
-            count("MSM", "basis_upload")
-            with span("MSM", "basis_upload"):
-                self._sharded_basis = ShardedBasis(kernels_for(self.cv),
-                                                   self.G, mesh)
-        return self._sharded_basis
+        """The basis split over `mesh` (default: the process mesh), from
+        the store."""
+        from ..parallel.mesh import process_mesh
+        return routes.basis(self, mesh if mesh is not None
+                            else process_mesh())
 
-    def _msm_device_route(self, values: List[int]) -> Point:
-        """Device MSM: split over the process mesh when it has more than
-        one device, else on the single engine device."""
-        from ..parallel.mesh import process_mesh, sharded_msm
-        mesh = process_mesh()
-        if mesh.size > 1:
+    def _msm_device_route(self, values: List[int], on: str) -> Point:
+        """Device MSM: split over the process mesh where `on` is
+        routes.MESH, else on the engine device (routes.CARD)."""
+        if on == routes.MESH:
+            from ..parallel.mesh import process_mesh, sharded_msm
+            mesh = process_mesh()
             basis = self.sharded_G(mesh)
             return sharded_msm(mesh, basis.ck, list(values), basis)
         basis = self.device_G()
@@ -386,8 +317,9 @@ class PedersenGens:
 
     def commit(self, values: List[int], blind: int) -> Point:
         cv = self.cv
-        if len(values) >= DEVICE_MSM_MIN_N and _device_msm_on(len(values)):
-            base = self._msm_device_route(values)
+        on = routes.route("msm", len(values))
+        if on != routes.HOST:
+            base = self._msm_device_route(values, on)
         else:
             try:
                 from ..ec.native_msm import msm_packed
@@ -403,21 +335,18 @@ class PedersenGens:
         once, rows threaded, magnitude-capped windows — the Hyrax doc
         commit); returns None when the native library is unavailable.
 
-        Wide matrices (row length >= DEVICE_ROWS_MIN_N, the tree kernel's
-        chunk floor) route to the device when the REEF_DEVICE_MSM gate
-        engages and the process mesh has one device: every row through
-        ec.msm_v3.msm_device_v3_rows, blinds folded in via one native
-        fixed-base call."""
+        Where the rows route (backend/routes.py) takes the card, every
+        row runs through ec.msm_v3.msm_device_v3_rows instead, blinds
+        folded in via one native fixed-base call."""
         n_rows = len(blinds)
         assert n_rows and len(flat) == n_rows * self.n
-        if (self.n >= DEVICE_ROWS_MIN_N and _device_msm_on(n_rows * self.n)
-                and _single_accel_device()):
+        if routes.route("rows", self.n) == routes.CARD:
             from ..ec.msm_v3 import msm_device_v3_rows
             from ..ec.native_msm import msm_rows as native_rows
             rows = [flat[r * self.n:(r + 1) * self.n]
                     for r in range(n_rows)]
-            base = msm_device_v3_rows(self.device_G().ck, rows,
-                                      self.device_G())
+            basis = self.device_G()
+            base = msm_device_v3_rows(basis.ck, rows, basis)
             hpacked = _pack_H(self.cv, self.H)
             bpts = native_rows(self.cv, n_rows, 1, [0] * n_rows, blinds,
                                hpacked, self.H)
@@ -512,8 +441,9 @@ class HyraxPC:
         # the row MSMs are MANY SMALL MSMs over a shared basis: the host
         # row-batched native call (basis loaded once, rows threaded) beats
         # per-row device launches for typical sqrt-factored shapes; wide
-        # rows (>= DEVICE_ROWS_MIN_N cols, fused-tree territory at >1M
-        # pts/s) route to one all-rows device dispatch inside commit_rows
+        # rows (at the rows floor of backend/routes.py and above,
+        # fused-tree territory at >1M pts/s) route to one all-rows device
+        # dispatch inside commit_rows
         rows = self.vec_gens.commit_rows(coeffs, blinds)
         if rows is None:
             rows = [self.vec_gens.commit(

@@ -4,7 +4,7 @@ The reference's framework.rs pipelines a solver thread against Nova folding
 (framework.rs:81-166); here a solver thread streams witness batches through
 a bounded queue into a fold worker (run_prover below) — witness generation
 overlaps the IVC step's commits, which run in the native MSM (GIL released)
-or on the device when REEF_DEVICE_MSM engages.  Protocol:
+or on the device where backend/routes.py routes them.  Protocol:
 
   commit:  Hyrax doc commitment (or Poseidon Merkle tree), public part +
            a prover secret seed for blinds (the reference serializes the
@@ -35,6 +35,7 @@ from ..ops import field as F
 from ..ops.poseidon import HostSponge, IOPattern
 from ..utils.metrics import count, span
 from . import commitment as CM
+from . import routes
 from .commitment import (ConsistencyProof, NLDocCommitment, SigmaEvalProof,
                          Transcript, commit_doc)
 from .costs import logmn
@@ -278,42 +279,6 @@ class _VerifierMerkle:
         self.height = logmn(udoc_len // 2) + 1 if udoc_len > 2 else 1
 
 
-def _prewarm_device_msm(committers) -> None:
-    """Build the CUDA kernels and upload each device basis (split over the
-    process mesh when it has more than one device) on the MAIN thread
-    before the fold worker starts, so the worker's first commit does not
-    stall on the nvcc build or a basis upload (a build error also
-    surfaces here, on the main thread).  No-op when the device MSM gate
-    is off."""
-    from ..parallel.mesh import process_mesh
-    from . import commitment as CM
-    from .ivc import secondary_parts
-    try:
-        _, _, wc2, ec2 = secondary_parts()
-        committers = list(committers) + [wc2, ec2]
-    except Exception:
-        committers = list(committers)
-    seen = set()
-    for c in committers:
-        gens = getattr(c, "gens", c)
-        n = getattr(gens, "n", 0)
-        key = (getattr(gens, "cv", None) and gens.cv.name, n)
-        if key in seen or n < CM.DEVICE_MSM_MIN_N \
-                or not CM._device_msm_on(n):
-            continue
-        seen.add(key)
-        mesh = process_mesh()
-        if mesh.size > 1:
-            gens.sharded_G(mesh)
-            dev = mesh.lead
-        else:
-            dev = gens.device_G().device
-        if dev.type == "cuda":
-            from ..utils import cudabuild
-            for name in cudabuild.LIBS:
-                cudabuild.library(name)
-
-
 # ---------------------------------------------------------------------------
 # prover
 # ---------------------------------------------------------------------------
@@ -335,7 +300,7 @@ def run_prover(commit: ReefCommitment, dc_secret: Optional[NLDocCommitment],
     import os as _os
     from ..utils.metrics import Metrics
     from ..utils import serialize as SZ
-    from .ivc import RecursiveSNARK
+    from .ivc import RecursiveSNARK, secondary_parts
     mt = metrics or Metrics()
     with span("Prover", "doc_transform"):
         udoc = doc_transform(safa.ab, doc_codes)
@@ -349,7 +314,8 @@ def run_prover(commit: ReefCommitment, dc_secret: Optional[NLDocCommitment],
     z0 = circuit.z0(salt, tt.table[0])
     rs = RecursiveSNARK(aug, shape, wc, ec, z0)
     with span("Prover", "prewarm"):
-        _prewarm_device_msm([wc, ec])
+        _, _, wc2, ec2 = secondary_parts()
+        routes.prewarm([c.gens for c in (wc, ec, wc2, ec2)])
     skip_folds = 0
     if checkpoint_path and _os.path.exists(checkpoint_path):
         rs.restore(SZ.load(checkpoint_path, kind="ckpt"))
@@ -424,23 +390,24 @@ def run_prover(commit: ReefCommitment, dc_secret: Optional[NLDocCommitment],
     def _consistency():
         import secrets
         try:
-            # this thread runs concurrently with compress: keep its MSMs
-            # on the host path so one thread at a time launches device
-            # work (commitment.pin_host_msm)
-            CM.pin_host_msm()
-            mt.tic("Prover", "consistency_proof")
-            if hybrid:
-                q, v = last_res.hyb_next_q, last_res.hyb_next_v
-            else:
-                q, v = last_res.doc_next_q, last_res.doc_next_v
-            # one v-commitment shared by the dot-prod argument and the CAP
-            v_blind = secrets.randbelow(f.p)
-            consist_box[0] = CM.prove_consistency(
-                dc_secret, tt.table, tt.proj_chunk_idx, q, v,
-                proj=tt.doc_subset is not None, hybrid=hybrid,
-                v_blind=v_blind)
-            consist_box[1] = cap_prove(v, salt, v_blind)
-            mt.stop("Prover", "consistency_proof")
+            # this thread runs concurrently with compress: its MSMs and
+            # IPAs stay on the host, so that one thread at a time launches
+            # device work
+            with routes.host_only():
+                mt.tic("Prover", "consistency_proof")
+                if hybrid:
+                    q, v = last_res.hyb_next_q, last_res.hyb_next_v
+                else:
+                    q, v = last_res.doc_next_q, last_res.doc_next_v
+                # one v-commitment shared by the dot-prod argument and the
+                # CAP
+                v_blind = secrets.randbelow(f.p)
+                consist_box[0] = CM.prove_consistency(
+                    dc_secret, tt.table, tt.proj_chunk_idx, q, v,
+                    proj=tt.doc_subset is not None, hybrid=hybrid,
+                    v_blind=v_blind)
+                consist_box[1] = cap_prove(v, salt, v_blind)
+                mt.stop("Prover", "consistency_proof")
         except Exception as e:               # surface in the caller
             consist_box[2] = e
 

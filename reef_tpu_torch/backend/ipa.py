@@ -26,6 +26,7 @@ from typing import List, Tuple
 from ..ec.pasta import PALLAS, Point
 from ..ops import field as F
 from ..utils.metrics import count, span
+from . import routes
 from .commitment import PedersenGens, Transcript
 
 f = F.FQ
@@ -74,25 +75,23 @@ def _batch_inverse(xs: List[int], p: int) -> List[int]:
 
 
 def _round_engine(gens: PedersenGens, w, R):
-    """The round engine of one proof, where the device MSM gate engages
-    for this thread at n >= IPA_DEVICE_MIN_N: `IpaMesh` over the basis
-    the process mesh holds when it has more than one device, else
-    `IpaDevice` (ec/ipa_device.py); elsewhere the native host engine,
-    else None (the python rounds below).  Counts `IPA mesh`, `IPA
-    device` or `IPA host`."""
-    from . import commitment as CM
-    n = len(w)
-    if n >= CM.IPA_DEVICE_MIN_N and CM._device_msm_on(n):
-        from ..ec.ipa_device import IpaDevice, IpaMesh
+    """The round engine of one proof, where backend/routes.py routes the
+    IPA of len(w) values: `IpaMesh` over the basis the process mesh
+    holds, `IpaDevice` (ec/ipa_device.py) on the card, else the native
+    host engine, else None (the python rounds below).  Counts `IPA
+    mesh`, `IPA device` or `IPA host`."""
+    on = routes.route("ipa", len(w))
+    if on == routes.MESH:
+        from ..ec.ipa_device import IpaMesh
         from ..parallel.mesh import process_mesh
-        mesh = process_mesh()
-        if mesh.size > 1:
-            count("IPA", "mesh")
-            return IpaMesh(gens, w, R, mesh)
+        count("IPA", "mesh")
+        return IpaMesh(gens, w, R, process_mesh())
+    if on == routes.CARD:
+        from ..ec.ipa_device import IpaDevice
         count("IPA", "device")
         return IpaDevice(gens, w, R)
     count("IPA", "host")
-    if n < 2:
+    if len(w) < 2:
         return None
     try:
         from ..ec.native_msm import IpaNative

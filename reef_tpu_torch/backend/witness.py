@@ -18,14 +18,10 @@ from typing import Dict, List, Optional, Tuple
 
 from ..ops import field as F
 from ..utils.metrics import count
+from . import routes
 from .step_circuit import StepCircuit
 from .sumcheck import nlookup_prove
 from .table import TransitionTable, trace_preprocessing
-
-# "auto" routes a lookup table of at least this many entries to the device
-# sumcheck; the JAX package's floor, chosen on the TPU (the H100's
-# crossover against the native host rounds is not measured yet)
-DEVICE_SUMCHECK_MIN_N = 1 << 14
 
 
 class BatchResult:
@@ -279,25 +275,13 @@ class WitnessGenerator:
         return wits, result
 
     def _maybe_device_cache(self, tag: str, table):
-        """Device table cache for the sumcheck hot loop: engaged by
-        default ("auto") on a CUDA engine device for tables of at least
-        2^14 entries; REEF_DEVICE_SUMCHECK=0 keeps every batch on the
-        host, =1 forces the device route for every table (on the engine
-        device, the CPU included: there the kernels' plain versions run).
-
-        With more than one device in the process mesh (parallel.mesh) the
-        table splits over it (`mesh.table_cache`: a power of two of
-        devices, at least 2 entries each), else it stays whole on the
-        lead device.  A failed kernel build or launch raises: the route
-        never falls back to the host behind the caller's back."""
-        import os
-        mode = os.environ.get("REEF_DEVICE_SUMCHECK", "auto")
-        if mode == "0":
-            return None
-        if mode == "auto":
-            from ..utils.device import device_profile
-            if device_profile() != "local-accel":
-                return None
+        """Device table cache for the sumcheck hot loop, where
+        backend/routes.py routes a table of len(table) entries: split over
+        the process mesh (`mesh.table_cache`: a power of two of devices,
+        at least 2 entries each, else whole on the lead), or whole on the
+        card; None on the host.  A failed kernel build or launch raises:
+        the route never falls back to the host behind the caller's
+        back."""
         if not hasattr(self, "_dev_caches"):
             self._dev_caches = {}
         key = (tag, len(table))
@@ -305,15 +289,14 @@ class WitnessGenerator:
             count("Solver", "device_cache_hit")
             return self._dev_caches[key]
         count("Solver", "device_cache_miss")
+        on = routes.route("sumcheck", len(table))
         cache = None
-        if mode == "1" or (mode == "auto"
-                           and len(table) >= DEVICE_SUMCHECK_MIN_N):
+        if on != routes.HOST:
             from ..ops.limb import FQ as LFQ
             from ..ops.sumcheck_device import DeviceTableCache
             from ..parallel.mesh import process_mesh, table_cache
-            mesh = process_mesh()
-            cache = (table_cache(LFQ, table, mesh) if mesh.size > 1
-                     else DeviceTableCache(LFQ, table))
+            cache = (table_cache(LFQ, table, process_mesh())
+                     if on == routes.MESH else DeviceTableCache(LFQ, table))
         self._dev_caches[key] = cache
         return cache
 

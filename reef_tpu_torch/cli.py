@@ -8,7 +8,9 @@ Mirrors the reference's clap interface (config.rs:15-124, main.rs):
   python -m reef_tpu_torch.cli ascii --e2e    -d doc.txt -r 'hello.*' [...]
 
 --device {cuda,cpu} (default cuda) picks the engine device of the device
-routes (REEF_DEVICE_MSM); without a CUDA device, only --device cpu runs.
+routes, which backend/routes.py chooses for each operation; on the CPU
+every operation stays on the host.  Without a CUDA device, only --device
+cpu runs.
 
 Alphabets: ascii (0..128), utf8, dna (ACGT); transforms --alpha-numeric,
 --ignore-whitespace, --case-insensitive (config.rs:291-420).

@@ -2,11 +2,11 @@
 mesh's sharded basis.
 
 A drop-in for ec/native_msm.py `IpaNative` (`cross`, `fold`, `final`,
-`close`), which backend/ipa.py `ipa_prove` takes where the device MSM gate
-engages at the vector's length.  The round state lives on the basis's
-device (a mesh's lead) as (8, n) int32 scalar-field tables (ops.limb's
-device layout): w and R canonical, the fold coefficients Montgomery
-(csrc/ipa.cu says why).  `IpaDevice`'s basis is the gens' resident
+`close`), which backend/ipa.py `ipa_prove` takes where backend/routes.py
+sends the vector's length to the card or the mesh.  The round state lives
+on the basis's device (a mesh's lead) as (8, n) int32 scalar-field tables
+(ops.limb's device layout): w and R canonical, the fold coefficients
+Montgomery (csrc/ipa.cu says why).  `IpaDevice`'s basis is the gens' resident
 `device_G()`; `IpaMesh`'s is the basis the process mesh already holds,
 `sharded_G(mesh)`, so a mesh never uploads the whole basis to one card.
 The engine uploads w and R once and nothing else.  A round:

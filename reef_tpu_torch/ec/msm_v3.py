@@ -29,7 +29,6 @@ Points are (3, 8, ...) int32 device-layout arrays (ops.limb, ec.msm).
 
 from __future__ import annotations
 
-import os
 from typing import Callable, List
 
 import numpy as np
@@ -49,6 +48,7 @@ N_WINDOWS = 32            # 32 LE bytes cover the 255-bit scalars
 D = 255                   # digits 1..255 have bucket boundaries
 DP = 256                  # padded digit axis
 TREE_MIN_CAP = 4096       # the tree kernel runs for chunks this wide
+DEFAULT_CAP = 1 << 14     # points a chunk
 
 PaddFn = Callable[[CurveKernels, torch.Tensor, torch.Tensor], torch.Tensor]
 ReduceFn = Callable[..., torch.Tensor]
@@ -59,12 +59,6 @@ def scalars_to_bytes(scalars: List[int], order_mod: int) -> np.ndarray:
     buf = b"".join((int(s) % order_mod).to_bytes(32, "little")
                    for s in scalars)
     return np.frombuffer(buf, np.uint8).reshape(len(scalars), 32).copy()
-
-
-def default_cap() -> int:
-    """Per-chunk point count (REEF_DEVICE_MSM_CHUNK, a power of two)."""
-    cap = int(os.environ.get("REEF_DEVICE_MSM_CHUNK", "16384"))
-    return max(128, 1 << (cap - 1).bit_length())
 
 
 def level_offsets(cap: int) -> List[int]:
@@ -272,7 +266,7 @@ class DeviceBasisV3:
     def __init__(self, ck: CurveKernels, points, cap: int = 0, device=None):
         self.ck = ck
         self.device = resolve(device)
-        self.cap = cap or default_cap()
+        self.cap = cap or DEFAULT_CAP
         if isinstance(points, list):
             points = ck.to_proj(points)
         points = np.asarray(points, dtype=np.int32)         # (n, 3, 8)

@@ -7,9 +7,10 @@ The port of the JAX package's `__graft_entry__.dryrun_multichip`:
      equal the host route's;
   2. the sharded MSM on real curve points against the native host MSM;
   3. commit + prove + verify of a document with both sharded routes
-     forced (REEF_DEVICE_MSM=1, REEF_DEVICE_SUMCHECK=1) on the mesh as the
-     process mesh, the compressed SNARK's IPAs on the mesh's round
-     engine (ec/ipa_device.py `IpaMesh`): the proof must verify, and the
+     forced (backend/routes.py: every sumcheck table and, on the CPU,
+     the device routes too) on the mesh as the process mesh, the
+     compressed SNARK's IPAs on the mesh's round engine
+     (ec/ipa_device.py `IpaMesh`): the proof must verify, and the
      commit MSMs that ran on `sharded_msm` and the sumchecks that ran on
      `sharded_rounds` over more than one shard are counted (both must be
      more than 0).
@@ -25,12 +26,13 @@ device; the CPU runs only where the arguments name it.
 
 from __future__ import annotations
 
-import os
+import contextlib
+import dataclasses
 import random
 import sys
 import time
-from contextlib import contextmanager
 from typing import Dict, List, Optional, Sequence
+from unittest import mock
 
 # step 3's document: 31 characters, so that its document table of 32
 # entries splits over a mesh of up to 16 devices
@@ -50,30 +52,6 @@ def default_devices() -> List[str]:
             else ["cuda:0"] * 8)
 
 
-@contextmanager
-def _patched(obj, name: str, value):
-    prev = getattr(obj, name)
-    setattr(obj, name, value)
-    try:
-        yield
-    finally:
-        setattr(obj, name, prev)
-
-
-@contextmanager
-def _env(**kw):
-    prev = {k: os.environ.get(k) for k in kw}
-    os.environ.update(kw)
-    try:
-        yield
-    finally:
-        for k, v in prev.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-
-
 def dryrun_multichip(devices: Sequence, msm_n: int = 64,
                      e2e_mesh_commits: Optional[int] = None,
                      log=print) -> Dict[str, object]:
@@ -87,6 +65,7 @@ def dryrun_multichip(devices: Sequence, msm_n: int = 64,
     seconds."""
     from ..backend import commitment as CM
     from ..backend import framework as FW
+    from ..backend import routes
     from ..backend import sumcheck as SC
     from ..backend.table import TransitionTable, doc_transform
     from ..ec.msm import pallas_kernels
@@ -152,11 +131,16 @@ def dryrun_multichip(devices: Sequence, msm_n: int = 64,
     # 3. commit + prove + verify with both sharded routes forced
     counts = {"sharded_msm": 0, "sharded_rounds": 0}
     orig_msm, orig_rounds = PM.sharded_msm, SD.sharded_rounds
+    forced = routes.Policy(sumcheck=1, cpu=True)
+    if e2e_mesh_commits is not None:
+        forced = dataclasses.replace(forced, ipa=None)
 
     def msm_counted(*a, **kw):
         counts["sharded_msm"] += 1
         if counts["sharded_msm"] == e2e_mesh_commits:
-            CM.DEVICE_MSM_MIN_N = 1 << 62      # restored on the way out
+            # the later commits to the host, until the proof is done
+            stack.enter_context(routes.use(
+                dataclasses.replace(forced, msm=None)))
         return orig_msm(*a, **kw)
 
     def rounds_counted(lf, t_shards, *a):
@@ -167,13 +151,12 @@ def dryrun_multichip(devices: Sequence, msm_n: int = 64,
     codes = [ord(c) for c in E2E_DOC]
     try:
         PM.select(mesh)
-        with _env(REEF_DEVICE_MSM="1", REEF_DEVICE_SUMCHECK="1"), \
-                _patched(CM, "DEVICE_MSM_MIN_N", CM.DEVICE_MSM_MIN_N), \
-                _patched(CM, "IPA_DEVICE_MIN_N",
-                         CM.IPA_DEVICE_MIN_N if e2e_mesh_commits is None
-                         else 1 << 62), \
-                _patched(PM, "sharded_msm", msm_counted), \
-                _patched(SD, "sharded_rounds", rounds_counted):
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(routes.use(forced))
+            stack.enter_context(mock.patch.object(PM, "sharded_msm",
+                                                  msm_counted))
+            stack.enter_context(mock.patch.object(SD, "sharded_rounds",
+                                                  rounds_counted))
             commit, dc = FW.run_committer(codes, safa.ab, False, seed=7)
             proofs = FW.run_prover(commit, dc, safa, codes, batch_size=2)
             lap("step3", f"proved ({counts['sharded_msm']} sharded MSMs, "

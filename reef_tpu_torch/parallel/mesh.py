@@ -51,8 +51,8 @@ the lead's stream synchronised, so it holds the wait for the slowest
 card), and the counters `Mesh shards` (shards issued) and `Mesh
 gather_bytes` (bytes of partial results gathered).
 
-The process mesh (`select`, `process_mesh`) is the one the commit route
-(backend.commitment) and the sumcheck cache (backend.witness) read.
+The process mesh (`select`, `process_mesh`) is the one the device routes
+(backend/routes.py) read.
 """
 
 from __future__ import annotations

@@ -6,6 +6,7 @@ each of its tests.
 """
 
 import contextlib
+import dataclasses
 import hashlib
 import io
 import os
@@ -14,6 +15,14 @@ import types
 import jax
 import pytest
 import torch
+
+from reef_tpu_torch.backend import routes
+
+# every nlookup batch on its device route, whatever its table's size, the
+# kernels' plain versions on a CPU engine; every other operation on the
+# host
+DEVICE_SUMCHECK_ONLY = dataclasses.replace(routes.ALL_HOST, cpu=True,
+                                           sumcheck=1)
 
 
 @pytest.fixture(autouse=True)
@@ -166,12 +175,12 @@ def cross_verify(monkeypatch, argv, prover: str, resume_after: int = 0,
     """One side commits and proves, the other verifies; `argv` are the
     port's `--e2e` arguments with `--device cpu` (the JAX package's CLI
     takes the same without `--device`).  The port proves with every
-    nlookup batch on its device route (REEF_DEVICE_SUMCHECK=1: the kernels'
+    nlookup batch on its device route (DEVICE_SUMCHECK_ONLY: the kernels'
     plain versions on the CPU; with `device_sumcheck` False, on the host)
-    and its commits on the host (REEF_DEVICE_MSM=0), and verifies on its
-    host routes; the JAX package
-    runs on its host routes, with the regex terms of a fresh process
-    (`fresh_reference_terms`).  With `resume_after` (argv hold
+    and its commits on the host, and verifies on its host routes; the JAX
+    package runs on its host routes (REEF_DEVICE_MSM=0,
+    REEF_DEVICE_SUMCHECK=0, which only it reads), with the regex terms of
+    a fresh process (`fresh_reference_terms`).  With `resume_after` (argv hold
     `--checkpoint`), the first proof stops after that many checkpoints and
     a second one resumes from the last of them."""
     from reef_tpu import cli as ref_cli
@@ -200,10 +209,11 @@ def cross_verify(monkeypatch, argv, prover: str, resume_after: int = 0,
         rounds.append(cache.ell)
         return orig(lf, cache, *a)
 
-    with monkeypatch.context() as m:
+    port_routes = (DEVICE_SUMCHECK_ONLY if prover == "port"
+                   and device_sumcheck else routes.policy())
+    with monkeypatch.context() as m, routes.use(port_routes):
         if prover == "port" and device_sumcheck:
             m.setattr(sumcheck_device, "device_sumcheck_rounds", counted)
-            m.setenv("REEF_DEVICE_SUMCHECK", "1")
         run_cli(main, _in_mode(prove_argv, "--commit"))
         if resume_after:
             with monkeypatch.context() as stop:

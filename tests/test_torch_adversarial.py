@@ -79,6 +79,8 @@ class Smoke:
 @pytest.fixture(scope="module")
 def smoke():
     with pytest.MonkeyPatch.context() as mp:
+        # the JAX package's host routes (the port's CPU engine keeps to
+        # the host)
         mp.setenv("REEF_DEVICE_MSM", "0")
         mp.setenv("REEF_DEVICE_SUMCHECK", "0")
         mp.setattr(device, "_SELECTED", torch.device("cpu"))
@@ -104,6 +106,8 @@ def smoke():
 
 @pytest.fixture(autouse=True)
 def _host_routes(monkeypatch):
+    # the JAX package's host routes (the port's CPU engine keeps to
+    # the host)
     monkeypatch.setenv("REEF_DEVICE_MSM", "0")
     monkeypatch.setenv("REEF_DEVICE_SUMCHECK", "0")
     monkeypatch.setattr(device, "_SELECTED", torch.device("cpu"))

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from reef_tpu_torch.backend import commitment as CM
+from reef_tpu_torch.backend import routes
 from reef_tpu_torch.ec import ipa_device as D
 from reef_tpu_torch.ec import msm, msm_v3
 from reef_tpu_torch.ec.native_msm import IpaNative
@@ -148,9 +149,8 @@ def test_spartan_with_device_ipa_verifies(monkeypatch):
         out = (x * x + av * x + 7) % F.FQ.p
         prover.fold_step(circ.witness({"x_in": x, "a": av, "x_out": out}))
         x = out
-    monkeypatch.setenv("REEF_DEVICE_MSM", "1")
-    monkeypatch.setattr(CM, "IPA_DEVICE_MIN_N", 2)
     before = cudabuild.launch_counts()["ipa_combine"]
-    proof = spartan_prove(shape, wc, ec, prover.U, prover.Wit)
+    with routes.use(routes.Policy(ipa=2)):
+        proof = spartan_prove(shape, wc, ec, prover.U, prover.Wit)
     assert cudabuild.launch_counts()["ipa_combine"] > before
     assert spartan_verify(shape, wc, ec, prover.U, proof)

@@ -46,7 +46,6 @@ def _host_routes(monkeypatch, tmp_path):
     """Each test works in its own directory, with the device routes at
     their defaults and the port's engine device unselected."""
     monkeypatch.chdir(tmp_path)
-    monkeypatch.delenv("REEF_DEVICE_MSM", raising=False)
     monkeypatch.setattr(device, "_SELECTED", None)
 
 
@@ -129,7 +128,6 @@ def test_cross_verify_mesh_sumcheck(monkeypatch):
 def test_serve_answers_requests(tmp_path):
     (tmp_path / "doc.txt").write_text(MERKLE[1])
     env = dict(os.environ, PYTHONPATH=ROOT)
-    env.pop("REEF_DEVICE_MSM", None)
     p = subprocess.Popen([sys.executable, "-m", "reef_tpu_torch.cli", "serve"],
                          stdin=subprocess.PIPE, stdout=subprocess.PIPE,
                          text=True, env=env, cwd=tmp_path)

@@ -266,6 +266,8 @@ def setup_summary(fw, safa, commit, bs, proj, hybrid, merkle, udoc):
 @pytest.mark.parametrize("case", list(SETUP_CASES))
 def test_public_setup_equals_reference(case, monkeypatch):
     rs, ab, doc, bs, proj, hybrid, merkle, negate = SETUP_CASES[case]
+    # the JAX package's host routes (the port's CPU engine keeps to
+    # the host)
     monkeypatch.setenv("REEF_DEVICE_MSM", "0")
     monkeypatch.setenv("REEF_DEVICE_SUMCHECK", "0")
     monkeypatch.setattr(device, "_SELECTED", torch.device("cpu"))

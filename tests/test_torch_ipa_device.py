@@ -5,12 +5,13 @@ ec/msm_v3.py's plain pipeline over the gens' `device_G()`.
 For a fixed list of challenges its rounds (cL, cR, L, R) and final scalar
 must equal both native host engines' (the port's and the JAX package's
 `IpaNative`); with the blinds fixed, a whole `ipa_prove` forced onto it
-(REEF_DEVICE_MSM=1 on the `cpu` device, the floor lowered) must give the
-host engine's proof bit for bit, which `ipa_verify` accepts, and so must
-one on the mesh engine (`IpaMesh`) over k CPUs; and `ipa_prove` must take
-each only where its gate engages.
+(the device routes taken on the `cpu` device, the ipa floor lowered) must
+give the host engine's proof bit for bit, which `ipa_verify` accepts, and
+so must one on the mesh engine (`IpaMesh`) over k CPUs; and `ipa_prove`
+must take each only where backend/routes.py routes it.
 """
 
+import contextlib
 import random
 import secrets
 
@@ -21,7 +22,7 @@ import torch
 from reef_tpu.ec import native_msm as ref_native
 from reef_tpu.ec import pasta as ref_pasta
 from reef_tpu_torch.backend import commitment as CM
-from reef_tpu_torch.backend import ipa
+from reef_tpu_torch.backend import ipa, routes
 from reef_tpu_torch.ec import ipa_device, msm_v3, native_msm
 from reef_tpu_torch.ec.pasta import PALLAS, VESTA
 from reef_tpu_torch.ops import limb
@@ -173,18 +174,16 @@ def test_device_engine_equals_host(case, cpu_engine, monkeypatch):
         assert got == _rounds(ref_native.IpaNative(ref_cv, w, R, packed), xs)
         assert len(got) == log_n + 1
         return
-    monkeypatch.setattr(CM, "IPA_DEVICE_MIN_N", n)
-    monkeypatch.setenv("REEF_DEVICE_MSM", "0")
     host, host_ok, host_took = _proof(gens, cv, n, 7)
-    monkeypatch.setenv("REEF_DEVICE_MSM", "1")
-    dev, dev_ok, dev_took = _proof(gens, cv, n, 7)
+    with routes.use(routes.Policy(cpu=True, ipa=n)):
+        dev, dev_ok, dev_took = _proof(gens, cv, n, 7)
     assert (host_took, dev_took) == ({"host": 1}, {"device": 1})
     assert host_ok and dev_ok
     assert dev == host
 
 
 # (curve, mesh of k CPUs, log2 n, log2 of the basis): n = 2^10 =
-# IPA_DEVICE_MIN_N; a vector half its basis, so two of the four shards
+# the ipa floor; a vector half its basis, so two of the four shards
 # hold none of its points and are skipped; shards of 64 points, which
 # their cards pad to 128
 MESH_CASES = [(name, k, 10, 10) for name in CURVES for k in (2, 4)] + [
@@ -195,8 +194,8 @@ MESH_CASES = [(name, k, 10, 10) for name in CURVES for k in (2, 4)] + [
                          ids=lambda c: "-".join(map(str, c)))
 def test_mesh_engine_equals_host(case, cpu_engine, monkeypatch):
     """A whole ipa_prove on the mesh engine (`IpaMesh` over the gens'
-    sharded basis, REEF_DEVICE_MSM=1 on a mesh of k CPUs) against the
-    host engine's, blinds fixed: the same proof, bit for bit, which
+    sharded basis, the device routes taken on a mesh of k CPUs) against
+    the host engine's, blinds fixed: the same proof, bit for bit, which
     `ipa_verify` accepts; no whole basis is uploaded."""
     name, k, log_n, log_b = case
     if native_msm._load() is None:
@@ -204,24 +203,23 @@ def test_mesh_engine_equals_host(case, cpu_engine, monkeypatch):
     _host_shards(monkeypatch)
     cv = CURVES[name][0]
     n = 1 << log_n
-    monkeypatch.setattr(CM, "IPA_DEVICE_MIN_N", min(n, CM.IPA_DEVICE_MIN_N))
     gens = CM.PedersenGens(cv, b"test_torch_ipa_device", 1 << log_b)
     monkeypatch.setattr(PM, "_PROCESS_MESH",
                         PM.make_mesh(devices=["cpu"] * k))
-    monkeypatch.setenv("REEF_DEVICE_MSM", "0")
+    monkeypatch.setattr(routes, "_BASES", {})
     host, host_ok, host_took = _proof(gens, cv, n, 7)
-    monkeypatch.setenv("REEF_DEVICE_MSM", "1")
-    mesh, mesh_ok, mesh_took = _proof(gens, cv, n, 7)
+    with routes.use(routes.Policy(cpu=True, ipa=min(n, routes.DEFAULT.ipa))):
+        mesh, mesh_ok, mesh_took = _proof(gens, cv, n, 7)
     assert (host_took, mesh_took) == ({"host": 1}, {"mesh": 1})
     assert host_ok and mesh_ok
     assert mesh == host
-    assert gens._device_basis is None
-    assert len(gens._sharded_basis.shards) == k
+    basis, = routes._BASES.values()          # no whole basis beside it
+    assert basis is gens.sharded_G() and len(basis.shards) == k
 
 
-# where ipa_prove's round engine is on the card: REEF_DEVICE_MSM=1 at
-# n >= IPA_DEVICE_MIN_N outside a pinned thread, `IpaDevice` on a
-# one-device mesh and `IpaMesh` on a larger one; every other case the
+# where ipa_prove's round engine is on the card: the device routes taken
+# at n at the ipa floor or above, outside `routes.host_only`, `IpaDevice`
+# on a one-device mesh and `IpaMesh` on a larger one; every other case the
 # host's
 GATES = ["device", "below_floor", "device_msm_off", "pinned_thread",
          "mesh", "mesh_below_floor", "mesh_pinned_thread"]
@@ -235,34 +233,35 @@ def test_round_engine_gate(gate, cpu_engine, monkeypatch):
     n = 16
     gens = CM.PedersenGens(PALLAS, b"test_torch_ipa_device", n)
     w, R = list(range(1, n + 1)), list(range(n, 0, -1))
-    monkeypatch.setattr(CM, "IPA_DEVICE_MIN_N",
-                        2 * n if gate.endswith("below_floor") else n)
-    monkeypatch.setenv("REEF_DEVICE_MSM",
-                       "0" if gate == "device_msm_off" else "1")
     monkeypatch.setattr(PM, "_PROCESS_MESH", PM.make_mesh(
         devices=["cpu"] * (2 if gate.startswith("mesh") else 1)))
+    monkeypatch.setattr(routes, "_BASES", {})
     got = {}
 
     def choose():
-        if gate.endswith("pinned_thread"):
-            CM.pin_host_msm()
         mt = metrics.Metrics()
-        with metrics.recording(mt):
+        pinned = gate.endswith("pinned_thread")
+        with metrics.recording(mt), \
+                routes.host_only() if pinned else contextlib.nullcontext():
             got["engine"] = ipa._round_engine(gens, w, R)
         got["took"] = {k[1]: c for k, c in mt.events.items()
                        if k[0] == "IPA"}
 
-    th = threading.Thread(target=choose)
-    th.start()
-    th.join(timeout=60)
+    with routes.use(routes.Policy(
+            cpu=gate != "device_msm_off",
+            ipa=2 * n if gate.endswith("below_floor") else n)):
+        th = threading.Thread(target=choose)
+        th.start()
+        th.join(timeout=60)
+    assert not th.is_alive()
     took = gate if gate in ("device", "mesh") else "host"
     want = {"device": ipa_device.IpaDevice, "mesh": ipa_device.IpaMesh,
             "host": native_msm.IpaNative}[took]
     assert type(got["engine"]) is want
     assert got["took"] == {took: 1}
     if took == "mesh":        # over the sharded basis, with no whole one
-        assert got["engine"].basis is gens._sharded_basis
-        assert gens._device_basis is None
+        basis, = routes._BASES.values()
+        assert got["engine"].basis is basis is gens.sharded_G()
     got["engine"].close()
 
 

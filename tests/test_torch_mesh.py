@@ -29,7 +29,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_support import (no_compile_cache_writes,  # noqa: F401
+from _torch_support import (DEVICE_SUMCHECK_ONLY,
+                            no_compile_cache_writes,  # noqa: F401
                             one_torch_thread, stand_in_card)
 from reef_tpu.backend import sumcheck as ref_sc
 from reef_tpu.backend.table import TransitionTable, doc_transform
@@ -40,6 +41,7 @@ from reef_tpu.models import prover_step as ref_step
 from reef_tpu.ops import field as ref_field
 from reef_tpu_torch import convert
 from reef_tpu_torch.backend import commitment as CM
+from reef_tpu_torch.backend import routes
 from reef_tpu_torch.backend import sumcheck as port_sc
 from reef_tpu_torch.backend import witness
 from reef_tpu_torch.ec import msm, msm_v3
@@ -233,12 +235,8 @@ def test_make_mesh_and_the_process_mesh(monkeypatch):
     assert PM.process_mesh() == PM.make_mesh()
     assert PM.select(["cpu"] * 8).size == 8
     assert PM.process_mesh() == _mesh(8)
-    monkeypatch.delenv("REEF_DEVICE_PROFILE", raising=False)
-    assert device.accel_device_count() == 0          # the engine is the CPU
-    monkeypatch.setenv("REEF_DEVICE_PROFILE", "local-accel")
-    assert device.accel_device_count() == 8
     assert PM.select(None) == PM.make_mesh()
-    assert device.accel_device_count() == 1
+    assert PM.process_mesh().size == 1
     with pytest.raises(ValueError):
         PM.make_mesh(devices=[])
     with pytest.raises(ValueError):
@@ -246,16 +244,6 @@ def test_make_mesh_and_the_process_mesh(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PM.make_mesh(devices=["cuda:0"] * 2)
-
-
-def test_device_msm_gate_on_a_mesh(monkeypatch):
-    monkeypatch.setenv("REEF_DEVICE_MSM", "auto")
-    monkeypatch.setenv("REEF_DEVICE_PROFILE", "cpu")
-    PM.select(["cpu"] * 4)
-    assert not CM._device_msm_on(1 << 16)
-    monkeypatch.setenv("REEF_DEVICE_PROFILE", "local-accel")
-    assert CM._device_msm_on(CM.DEVICE_MSM_MIN_N)
-    assert not CM._device_msm_on(CM.DEVICE_MSM_MIN_N - 1)
 
 
 def test_msm_device_route_takes_the_mesh(monkeypatch):
@@ -271,14 +259,14 @@ def test_msm_device_route_takes_the_mesh(monkeypatch):
         msm_v3, "msm_device_v3", lambda ck, v, basis:
         calls.append(("single", basis.n, len(v))) or "D")
     PM.select(["cpu"] * 4)
-    assert gens._msm_device_route(values) == "S"
+    assert gens._msm_device_route(values, routes.MESH) == "S"
     basis = gens.sharded_G()
     assert gens.sharded_G() is basis and basis.mesh == _mesh(4)
     assert [b.n for b in basis.shards] == [64] * 4
     PM.select(["cpu"] * 2)
     assert gens.sharded_G() is not basis
     PM.select(None)
-    assert gens._msm_device_route(values) == "D"
+    assert gens._msm_device_route(values, routes.CARD) == "D"
     assert calls == [("sharded", 4, 256, 256), ("single", 256, 256)]
 
 
@@ -288,19 +276,17 @@ def test_commit_rows_take_the_device_rows_only_on_one_device(monkeypatch):
     rng = np.random.default_rng(5)
     flat = [int(v) for v in rng.integers(0, 1 << 60, 2 * n)]
     blinds = [3, 4]
-    monkeypatch.setenv("REEF_DEVICE_MSM", "0")
-    host = gens.commit_rows(flat, blinds)
+    host = gens.commit_rows(flat, blinds)    # the CPU engine: the host
     calls = []
     monkeypatch.setattr(msm_v3, "msm_device_v3_rows",
                         lambda ck, rows, basis: calls.append(len(rows))
                         or [None] * len(rows))
-    monkeypatch.setattr(CM, "DEVICE_ROWS_MIN_N", n)
-    monkeypatch.setenv("REEF_DEVICE_MSM", "1")
-    PM.select(["cpu"] * 2)
-    assert gens.commit_rows(flat, blinds) == host
-    assert calls == []
-    PM.select(None)
-    gens.commit_rows(flat, blinds)
+    with routes.use(routes.Policy(cpu=True, rows=n)):
+        PM.select(["cpu"] * 2)
+        assert gens.commit_rows(flat, blinds) == host
+        assert calls == []
+        PM.select(None)
+        gens.commit_rows(flat, blinds)
     assert calls == [2]
 
 
@@ -308,13 +294,13 @@ def test_commit_rows_take_the_device_rows_only_on_one_device(monkeypatch):
                                          (4, 7, False), (3, 64, False),
                                          (8, 16, True)])
 def test_device_cache_takes_the_mesh(monkeypatch, k, n, sharded):
-    """REEF_DEVICE_SUMCHECK=1: split at and above 2k entries on a mesh of
-    a power of two devices, else whole on the lead."""
-    monkeypatch.setenv("REEF_DEVICE_SUMCHECK", "1")
+    """Every table on its device route: split at and above 2k entries on
+    a mesh of a power of two devices, else whole on the lead."""
     PM.select(["cpu"] * k)
     gen = witness.WitnessGenerator.__new__(witness.WitnessGenerator)
     table = list(range(n))
-    cache = gen._maybe_device_cache("nl", table)
+    with routes.use(DEVICE_SUMCHECK_ONLY):
+        cache = gen._maybe_device_cache("nl", table)
     assert gen._maybe_device_cache("nl", table) is cache
     assert isinstance(cache, SD.DeviceTableCache) and cache.device == CPU
     assert len(cache.t_shards) == (k if sharded else 1)

@@ -20,6 +20,7 @@ from reef_tpu.ec import native_msm as ref_native
 from reef_tpu.ec import pasta as ref_pasta
 from reef_tpu_torch import cli, convert
 from reef_tpu_torch.backend import commitment as CM
+from reef_tpu_torch.backend import routes
 from reef_tpu_torch.ec import msm, msm_v3
 from reef_tpu_torch.ec.pasta import PALLAS
 from reef_tpu_torch.utils import device
@@ -174,16 +175,15 @@ def test_convert_basis_from_reference(name, cpu_engine):
 
 
 def test_commit_routes_to_device_msm(monkeypatch, cpu_engine):
-    """REEF_DEVICE_MSM=1: commit and commit_rows take the device MSM and
-    give the host route's points."""
-    n = CM.DEVICE_MSM_MIN_N
+    """With the device routes taken on the CPU, commit and commit_rows take
+    the device MSM and give the host route's points."""
+    n = routes.DEFAULT.msm
     gens = CM.PedersenGens(PALLAS, b"test_torch_msm/commit", n)
     values = _scalars(PALLAS, n, 28)
     flat = _scalars(PALLAS, n, 29)
     blinds = [5]
 
-    monkeypatch.setenv("REEF_DEVICE_MSM", "0")
-    host = gens.commit(values, 3)
+    host = gens.commit(values, 3)            # the CPU engine: the host
     host_rows = gens.commit_rows(flat, blinds)
 
     calls = []
@@ -192,29 +192,14 @@ def test_commit_routes_to_device_msm(monkeypatch, cpu_engine):
                         lambda *a: calls.append("one") or orig(*a))
     monkeypatch.setattr(msm_v3, "msm_device_v3_rows",
                         lambda *a: calls.append("rows") or orig_rows(*a))
-    monkeypatch.setattr(CM, "DEVICE_ROWS_MIN_N", n)
-    monkeypatch.setenv("REEF_DEVICE_MSM", "1")
-    assert gens.commit(values, 3) == host
-    assert gens.commit_rows(flat, blinds) == host_rows
+    with routes.use(routes.Policy(cpu=True, rows=n)):
+        assert gens.commit(values, 3) == host
+        assert gens.commit_rows(flat, blinds) == host_rows
+        assert calls == ["one", "rows"]
+        assert gens.device_G().device == torch.device("cpu")
+        # below the msm floor the host MSM runs
+        gens.commit(values[:100], 3)
     assert calls == ["one", "rows"]
-    assert gens.device_G().device == torch.device("cpu")
-    # below DEVICE_MSM_MIN_N the host MSM runs even when forced
-    gens.commit(values[:100], 3)
-    assert calls == ["one", "rows"]
-
-
-def test_device_msm_gate(monkeypatch, cpu_engine):
-    monkeypatch.delenv("REEF_DEVICE_PROFILE", raising=False)
-    monkeypatch.setenv("REEF_DEVICE_MSM", "0")
-    assert not CM._device_msm_on(1 << 16)
-    monkeypatch.setenv("REEF_DEVICE_MSM", "1")
-    assert CM._device_msm_on(1 << 16)
-    monkeypatch.setenv("REEF_DEVICE_MSM", "auto")
-    assert not CM._device_msm_on(1 << 16)          # the engine is the CPU
-    monkeypatch.setenv("REEF_DEVICE_PROFILE", "local-accel")
-    assert CM._device_msm_on(CM.DEVICE_MSM_MIN_N)
-    assert not CM._device_msm_on(CM.DEVICE_MSM_MIN_N - 1)
-    assert (CM.DEVICE_MSM_MIN_N, CM.DEVICE_ROWS_MIN_N) == (256, 4096)
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
@@ -231,4 +216,4 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         cli.main(["ascii", "--commit", "-d", "unused.txt"])
     assert device.select("cpu") == torch.device("cpu")
     assert device.resolve() == torch.device("cpu")
-    assert device.device_profile() == "cpu"
+    assert device.engine_type() == "cpu"

@@ -47,13 +47,13 @@ def test_case_table():
     those whose lookup table reaches the sumcheck floor; only `resume`
     checkpoints, with `-b 2`."""
     from reef_tpu_torch import workloads
-    from reef_tpu_torch.backend.witness import DEVICE_SUMCHECK_MIN_N
+    from reef_tpu_torch.backend import routes
     cs = CP.case_inputs(CP.CASES["dna"])
     size = CP.CASES["dna"]["size"]
     assert cs[2].decode() == workloads.case("dna", size)[2].decode()
     assert cs[:4] == ("dna", f"^.{{{size - 24}}}ATGGGCTACAGAAACCGTGCCAAA.*",
                       cs[2], [])
-    assert DEVICE_SUMCHECK_MIN_N == 1 << 14
+    assert routes.DEFAULT.sumcheck == 1 << 14
     assert {n for n, s in CP.CASES.items() if s.get("table")} == \
         {"dna", "proj_hybrid"}
     for name, spec in {**CP.CASES, **CP.REFERENCE_CASES}.items():

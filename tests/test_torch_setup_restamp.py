@@ -40,6 +40,8 @@ HYRAX_CASES = [c for c in SETUP_CASES if not SETUP_CASES[c][6]]
 
 @pytest.fixture
 def host_routes(monkeypatch):
+    # the JAX package's host routes (the port's CPU engine keeps to
+    # the host)
     monkeypatch.setenv("REEF_DEVICE_MSM", "0")
     monkeypatch.setenv("REEF_DEVICE_SUMCHECK", "0")
     monkeypatch.setattr(device, "_SELECTED", torch.device("cpu"))

@@ -5,8 +5,7 @@ loop, the Poseidon sponge on the device, through the K5 and K6 wrappers,
 which run their plain versions on CPU tensors) must give exactly the JAX
 package's host transcript: the challenges, the round coefficients, the
 next running claim and the sponge state afterwards.  The flagship step's
-round is held to big-int python; the witness routing to the device
-cache follows REEF_DEVICE_SUMCHECK; and a proof made with the document
+round is held to big-int python; and a proof made with the document
 sumcheck forced onto the device route verifies under the JAX package's
 verifier.  The coefficient kernel's three-product form must equal the
 reference's four-product sums, and its launch plan must make one launch
@@ -22,7 +21,8 @@ import pytest
 import torch
 
 from _torch_card_support import rows as _rows
-from _torch_support import (no_compile_cache_writes,  # noqa: F401
+from _torch_support import (DEVICE_SUMCHECK_ONLY,
+                            no_compile_cache_writes,  # noqa: F401
                             one_torch_thread, stand_in_card)
 from reef_tpu import cli as ref_cli
 from reef_tpu.backend import sumcheck as ref_sc
@@ -31,8 +31,8 @@ from reef_tpu.frontend import parser, regex as R
 from reef_tpu.frontend.safa import SAFA
 from reef_tpu.ops import field as ref_field
 from reef_tpu_torch import cli
+from reef_tpu_torch.backend import routes
 from reef_tpu_torch.backend import sumcheck as port_sc
-from reef_tpu_torch.backend import witness
 from reef_tpu_torch.models import prover_step
 from reef_tpu_torch.ops import limb
 from reef_tpu_torch.ops import sumcheck_device as SD
@@ -141,30 +141,6 @@ def test_build_eq_matches_reference_eq_table():
     assert lf.decode32(eq) == ref_sc.gen_eq_table(f, rs, qs, prev_q)
 
 
-@pytest.mark.parametrize("mode,profile,n,engaged", [
-    ("0", "local-accel", 1 << 14, False),
-    ("auto", "cpu", 1 << 14, False),
-    ("auto", "local-accel", (1 << 14) - 1, False),
-    ("auto", "local-accel", 1 << 14, True),
-    ("1", "cpu", 64, True),
-])
-def test_device_cache_routing(monkeypatch, mode, profile, n, engaged):
-    """REEF_DEVICE_SUMCHECK: 0 = host, 1 = device route for any table,
-    auto = device route for tables >= 2^14 on a CUDA engine device (here
-    the profile is forced and the cache lands on the selected CPU)."""
-    monkeypatch.setenv("REEF_DEVICE_SUMCHECK", mode)
-    monkeypatch.setenv("REEF_DEVICE_PROFILE", profile)
-    monkeypatch.setattr(device, "_SELECTED", torch.device("cpu"))
-    gen = witness.WitnessGenerator.__new__(witness.WitnessGenerator)
-    table = list(range(n))
-    cache = gen._maybe_device_cache("nldoc", table)
-    assert (cache is not None) == engaged
-    assert gen._maybe_device_cache("nldoc", table) is cache
-    if engaged:
-        assert cache.device.type == "cpu"
-        assert limb.FQ.decode32(cache.t_shards[0][:, :3]) == [0, 1, 2]
-
-
 def _run(main, argv) -> str:
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -178,8 +154,7 @@ def test_forced_device_sumcheck_e2e_verifies_with_reference(monkeypatch,
     versions on the CPU; MSMs on the host), then verify with the JAX
     package's verifier."""
     monkeypatch.chdir(tmp_path)
-    monkeypatch.setenv("REEF_DEVICE_SUMCHECK", "1")
-    monkeypatch.setenv("REEF_DEVICE_MSM", "0")
+    monkeypatch.setenv("REEF_DEVICE_MSM", "0")      # the JAX verifier's
     monkeypatch.setattr(device, "_SELECTED", None)
     calls = []
     orig = SD.device_sumcheck_rounds
@@ -191,8 +166,9 @@ def test_forced_device_sumcheck_e2e_verifies_with_reference(monkeypatch,
     monkeypatch.setattr(SD, "device_sumcheck_rounds", counted)
     (tmp_path / "doc.txt").write_text("aaaaaaaab")
     argv = ["ascii", "-d", "doc.txt", "-r", ".*b"]
-    _run(cli.main, argv[:1] + ["--commit"] + argv[1:] + ["--device", "cpu"])
-    _run(cli.main, argv[:1] + ["--prove"] + argv[1:] + ["--device", "cpu"])
+    with routes.use(DEVICE_SUMCHECK_ONLY):
+        for mode in ("--commit", "--prove"):
+            _run(cli.main, argv[:1] + [mode] + argv[1:] + ["--device", "cpu"])
     assert sorted(set(calls)) == [("cpu", 3), ("cpu", 4)]
     assert "Verification PASSED" in _run(ref_cli.main,
                                          argv[:1] + ["--verify"] + argv[1:])

@@ -62,7 +62,6 @@ def e2e_argv(monkeypatch, tmp_path):
     """A tiny DNA `--e2e` on the host routes, in its own directory; the
     last request's spans and the engine device are restored after."""
     monkeypatch.chdir(tmp_path)
-    monkeypatch.delenv("REEF_DEVICE_MSM", raising=False)
     monkeypatch.setattr(device, "_SELECTED", None)
     monkeypatch.setattr(metrics, "_LAST", metrics._LAST)
     (tmp_path / "doc.txt").write_text("ACGTTGCAAC")
@@ -209,26 +208,25 @@ def test_a_new_document_restamps_the_circuit(e2e_argv):
 @pytest.mark.parametrize("k", [4, 1])
 def test_mesh_spans_and_counters_only_on_a_mesh(k, monkeypatch, tmp_path):
     """A commit MSM on the device route and an IPA on the round engine
-    the gate takes (REEF_DEVICE_MSM=1, the kernels' plain versions on CPU
-    tensors): on a mesh of four CPUs the sharded MSM and `IpaMesh` record
-    the mesh's spans and counters, which the `--metrics` CSV carries to
-    the benchmark's readers; on one device (`msm_device_v3`, `IpaDevice`)
-    none of them."""
+    the routes take (the device routes taken on the CPU, where the
+    kernels' plain versions run on CPU tensors): on a mesh of four CPUs
+    the sharded MSM and `IpaMesh` record the mesh's spans and counters,
+    which the `--metrics` CSV carries to the benchmark's readers; on one
+    device (`msm_device_v3`, `IpaDevice`) none of them."""
     from reef_tpu_torch.backend import commitment as CM
-    from reef_tpu_torch.backend import ipa
+    from reef_tpu_torch.backend import ipa, routes
     from reef_tpu_torch.ec.pasta import PALLAS
     from reef_tpu_torch.parallel import mesh as PM
     monkeypatch.setattr(device, "_SELECTED", None)
     device.select("cpu")
-    monkeypatch.setenv("REEF_DEVICE_MSM", "1")
     values = list(range(1, 9))
-    monkeypatch.setattr(CM, "DEVICE_MSM_MIN_N", len(values))
-    monkeypatch.setattr(CM, "IPA_DEVICE_MIN_N", 2)
     monkeypatch.setattr(PM, "_PROCESS_MESH",
                         PM.make_mesh(devices=["cpu"] * k))
+    monkeypatch.setattr(routes, "_BASES", {})
     gens = CM.PedersenGens(PALLAS, b"test_torch_trace", len(values))
     mt = metrics.Metrics()
-    with metrics.recording(mt):
+    with metrics.recording(mt), \
+            routes.use(routes.Policy(cpu=True, msm=len(values), ipa=2)):
         assert gens.commit(values, 0) == PALLAS.msm(values, gens.G)
         eng = ipa._round_engine(gens, values[:4], values[4:])
         for x in (5, 7):

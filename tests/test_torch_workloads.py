@@ -68,8 +68,6 @@ def test_documents_are_written_as_utf8(tmp_path):
 
 def test_serve_runs_a_workload(tmp_path):
     env = dict(os.environ, PYTHONPATH=ROOT)
-    for k in ("REEF_DEVICE_MSM", "REEF_DEVICE_SUMCHECK"):
-        env.pop(k, None)
     r = subprocess.run(
         [sys.executable, "-m", "reef_tpu_torch.workloads", "password",
          "--serve", "--device", "cpu"], cwd=tmp_path, env=env,
@@ -82,8 +80,6 @@ def test_one_worker_serves_alphabets_and_modes(monkeypatch, tmp_path):
     """One serve worker proves utf8 with -m -n, then ascii with -p -y,
     then dna on Hyrax: its caches (automata, generators, bases) hold
     across requests of other alphabets and flags."""
-    for k in ("REEF_DEVICE_MSM", "REEF_DEVICE_SUMCHECK"):
-        monkeypatch.delenv(k, raising=False)
     worker = workloads.ServeWorker()
     try:
         for name in ("unicode_mn", "proj_hybrid", "dna"):

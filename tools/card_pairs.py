@@ -8,7 +8,7 @@ own, and keep them as test data.
 For each case of CASES the document is written into a scratch directory,
 then `python -m reef_tpu_torch.cli <alphabet> --commit`, `--prove` and
 `--verify` run there, each in a process of its own, on the CLI's default
-`--device cuda` with REEF_DEVICE_MSM=auto and REEF_DEVICE_SUMCHECK=auto.
+`--device cuda`, each operation on the route backend/routes.py chooses.
 The prove process runs through this file's `role` runner, which calls
 `cli.main` and then writes the process's kernel launch counts
 (`cudabuild.launch_counts`) into a file; it also writes the counts so far
@@ -163,8 +163,6 @@ def role_env(reference: bool) -> dict:
     if reference:
         env.update(REEF_DEVICE_MSM="0", REEF_DEVICE_SUMCHECK="0",
                    JAX_PLATFORMS="cpu")
-    else:
-        env.update(REEF_DEVICE_MSM="auto", REEF_DEVICE_SUMCHECK="auto")
     return env
 
 

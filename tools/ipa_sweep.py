@@ -7,14 +7,14 @@ For each curve and each n = 2^log: a whole `backend/ipa.py` `ipa_prove`
 of a random vector over the `reef/g/pv` basis of n points (the basis the
 compressed SNARK opens over), warm: the generators, their device basis
 and the kernels are made first, and each engine proves once untimed.
-Then the native host engine (REEF_DEVICE_MSM=0) and the device engine
-(`ec/ipa_device.py`, REEF_DEVICE_MSM=1 with the floor lowered to 2) in
+Then the native host engine (the policy `routes.ALL_HOST`) and the device
+engine (`ec/ipa_device.py`, the policy's ipa floor lowered to 2) in
 turns, host first in odd repetitions and device first in even ones,
 `--reps` times each, the blinds seeded alike so that the two proofs must
 be equal (and verify).  Prints one JSON line a size: the medians of each
 engine's seconds a proof, the device engine's mean milliseconds a round
 for `cross` and `fold`, and the card's name and power limit; the
-crossover sets backend/commitment.py IPA_DEVICE_MIN_N.
+crossover sets the ipa floor of backend/routes.py.
 
 Each kernel of csrc/ipa.cu alone, against its plain version, with its
 time and least time, is chip_smoke.py's phase `ipa`.
@@ -71,12 +71,12 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("ipa_sweep: no CUDA device")
     from reef_tpu_torch.backend import commitment as CM
-    from reef_tpu_torch.backend import ipa
+    from reef_tpu_torch.backend import ipa, routes
     from reef_tpu_torch.ec import ipa_device
     from reef_tpu_torch.ec.pasta import PALLAS, VESTA
     from reef_tpu_torch.utils import cudabuild
     cudabuild.library("ipa")
-    CM.IPA_DEVICE_MIN_N = 2
+    engines = {"host": routes.ALL_HOST, "device": routes.Policy(ipa=2)}
     name = card()
     # the device engine's cross and fold, timed to the end of their work
     phase = {"cross": [], "fold": []}
@@ -103,41 +103,39 @@ def main(argv=None) -> int:
             R = [rng.randrange(p) for _ in range(n)]
             rho, r_v = rng.randrange(p), rng.randrange(p)
             v = sum(a * b for a, b in zip(w, R)) % p
-            os.environ["REEF_DEVICE_MSM"] = "0"
-            C_w = gens.commit(w, rho)
+            with routes.use(routes.ALL_HOST):
+                C_w = gens.commit(w, rho)
             C_v = cv.add(cv.mul(v, G_s), cv.mul(r_v, gens.H))
             inputs = (G_s, w, rho, R, v, r_v, C_w, C_v)
-            secs = {"0": [], "1": []}
+            secs = {"host": [], "device": []}
             proofs = {}
             for rep in range(args.reps + 1):
                 if rep == 1:
                     phase["cross"].clear()
                     phase["fold"].clear()
-                order = ("0", "1") if rep % 2 else ("1", "0")
-                for mode in order:
-                    os.environ["REEF_DEVICE_MSM"] = mode
-                    s, proofs[mode] = prove(CM, ipa, gens, inputs, rep)
+                order = ("host", "device") if rep % 2 else ("device", "host")
+                for eng in order:
+                    with routes.use(engines[eng]):
+                        s, proofs[eng] = prove(CM, ipa, gens, inputs, rep)
                     if rep:                      # rep 0 warms up
-                        secs[mode].append(s)
-                if proofs["0"] != proofs["1"]:
+                        secs[eng].append(s)
+                if proofs["host"] != proofs["device"]:
                     raise SystemExit(f"ipa_sweep: the engines' proofs "
                                      f"differ at {cv.name} 2^{log}")
-            os.environ["REEF_DEVICE_MSM"] = "0"
-            ok = ipa.ipa_verify(gens, G_s, R, C_w, C_v, proofs["1"],
-                                CM.Transcript(b"sweep"))
+            with routes.use(routes.ALL_HOST):
+                ok = ipa.ipa_verify(gens, G_s, R, C_w, C_v, proofs["device"],
+                                    CM.Transcript(b"sweep"))
             if not ok:
                 raise SystemExit(f"ipa_sweep: no verify at {cv.name} "
                                  f"2^{log}")
             print(json.dumps({
                 "curve": cv.name, "log_n": log,
-                "host_s": statistics.median(secs["0"]),
-                "device_s": statistics.median(secs["1"]),
-                "host_runs": secs["0"], "device_runs": secs["1"],
+                "host_s": statistics.median(secs["host"]),
+                "device_s": statistics.median(secs["device"]),
+                "host_runs": secs["host"], "device_runs": secs["device"],
                 "device_cross_ms": 1e3 * statistics.mean(phase["cross"]),
                 "device_fold_ms": 1e3 * statistics.mean(phase["fold"]),
                 "card": name}), flush=True)
-            gens._device_basis = None
-            torch.cuda.empty_cache()
     return 0
 
 

@@ -77,7 +77,7 @@ def phase_ipa_mesh(torch, mesh_devs) -> dict:
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import ipa_sweep
     from reef_tpu_torch.backend import commitment as CM
-    from reef_tpu_torch.backend import ipa
+    from reef_tpu_torch.backend import ipa, routes
     from reef_tpu_torch.ec import ipa_device
     from reef_tpu_torch.ec.pasta import PALLAS, VESTA
     from reef_tpu_torch.parallel import mesh as PM
@@ -86,7 +86,6 @@ def phase_ipa_mesh(torch, mesh_devs) -> dict:
     mesh = PM.make_mesh(devices=mesh_devs)
     single = PM.make_mesh(devices=mesh_devs[:1])
     out = {}
-    prev = os.environ.get("REEF_DEVICE_MSM")
     try:
         for cname, log in CS.IPA_MAIN:
             cv = {"pallas": PALLAS, "vesta": VESTA}[cname]
@@ -98,12 +97,11 @@ def phase_ipa_mesh(torch, mesh_devs) -> dict:
             R = [rng.randrange(p) for _ in range(n)]
             rho, r_v = rng.randrange(p), rng.randrange(p)
             v = sum(a * b for a, b in zip(w, R)) % p
-            os.environ["REEF_DEVICE_MSM"] = "0"
-            C_w = gens.commit(w, rho)
-            C_v = cv.add(cv.mul(v, G_s), cv.mul(r_v, gens.H))
-            inputs = (G_s, w, rho, R, v, r_v, C_w, C_v)
-            _, host = ipa_sweep.prove(CM, ipa, gens, inputs, 1)
-            os.environ["REEF_DEVICE_MSM"] = "1"
+            with routes.use(routes.ALL_HOST):
+                C_w = gens.commit(w, rho)
+                C_v = cv.add(cv.mul(v, G_s), cv.mul(r_v, gens.H))
+                inputs = (G_s, w, rho, R, v, r_v, C_w, C_v)
+                _, host = ipa_sweep.prove(CM, ipa, gens, inputs, 1)
             PM.select(mesh)
             mt = metrics.Metrics()
             with metrics.recording(mt):
@@ -111,15 +109,13 @@ def phase_ipa_mesh(torch, mesh_devs) -> dict:
             took = {k[1]: c for k, c in mt.events.items() if k[0] == "IPA"}
             CS.require(took == {"mesh": 1},
                        f"ipa_mesh: {cname} took the engines {took}")
-            CS.require(gens._device_basis is None,
-                       "ipa_mesh: the mesh engine uploaded a whole basis")
             CS.require(on_mesh == host,
                        f"ipa_mesh: the mesh engine's proof differs from "
                        f"the host engine's at {cname} 2^{log}")
-            os.environ["REEF_DEVICE_MSM"] = "0"
-            CS.require(ipa.ipa_verify(gens, G_s, R, C_w, C_v, on_mesh,
-                                      CM.Transcript(b"sweep")),
-                       f"ipa_mesh: no verify at {cname} 2^{log}")
+            with routes.use(routes.ALL_HOST):
+                CS.require(ipa.ipa_verify(gens, G_s, R, C_w, C_v, on_mesh,
+                                          CM.Transcript(b"sweep")),
+                           f"ipa_mesh: no verify at {cname} 2^{log}")
             xs = [rng.randrange(1, p) for _ in range(log)]
             times = {"mesh": [], "lead": []}
             spans = []
@@ -143,14 +139,8 @@ def phase_ipa_mesh(torch, mesh_devs) -> dict:
                 "mesh_runs_ms": times["mesh"][1:],
                 "lead_runs_ms": times["lead"][1:],
                 "mesh_span_ms_a_round": spans[-1]}
-            gens._device_basis = gens._sharded_basis = None
-            torch.cuda.empty_cache()
     finally:
         PM.select(None)
-        if prev is None:
-            os.environ.pop("REEF_DEVICE_MSM", None)
-        else:
-            os.environ["REEF_DEVICE_MSM"] = prev
     CS.emit("ipa_mesh", t0, devices=list(mesh_devs), **out)
     return out
 
@@ -216,17 +206,18 @@ def main(argv=None) -> int:
         sumcheck_device.sharded_rounds = partial(counted, "sharded_rounds",
                                                  orig_rounds)
         CM.PedersenGens._msm_device_route = (
-            lambda gens, values: timed("msm", orig_route, gens, values))
+            lambda gens, values, on: timed("msm", orig_route, gens, values,
+                                           on))
         sumcheck_device.device_sumcheck_rounds = partial(timed, "sumcheck",
                                                          orig_sc)
         PM.select(["cuda:0"])
-        cold_wall = e2e("1", "auto")
+        cold_wall = e2e()
         for _ in range(E2E_PAIRS):
             for name, devs in (("single", ["cuda:0"]), ("mesh", mesh_devs)):
                 PM.select(devs)
                 route_s.update(msm=0.0, sumcheck=0.0)
                 cudabuild.reset_counts()
-                walls[name].append(e2e("1", "auto"))
+                walls[name].append(e2e())
                 routes[name].append(dict(route_s))
                 if name == "mesh":
                     launches = cudabuild.launch_counts()
