@@ -56,7 +56,9 @@ script exits non-zero and prints no result:
           plain versions at half = 2^19, and the coefficient launch at
           every half 2^19..1 with and without a sponge state, one launch
           a round, each round's device time; the fold and the eq step at
-          every half too
+          every half too; K6's table encode (csrc/sc_encode.cu) on the
+          1 MB document's table (10^6 codes below 4, padded to 2^20)
+          against its plain version, timed
   merkle  build_tree_device of the 1 MB DNA document (2^19 leaves, one K5
           launch per level), timed; a 64 Ki-entry document's root equal
           to the host MerkleCommitment
@@ -282,6 +284,8 @@ POSEIDON_SWEEP_LOG = 15
 SAMPLE = 4096
 SUMCHECK_N = (1 << 14, 1 << 16)
 KERNEL_HALF = 1 << 19
+# K6's table encode at the e2e's document table: values, padded entries
+ENCODE_N, ENCODE_PAD = 1_000_000, 1 << 20
 MERKLE_CHECK_N = 1 << 16
 STEP_B, STEP_HALF = 1 << 19, 1 << 19
 FIELD_B = 1 << 20
@@ -299,7 +303,8 @@ MESH_STEP_PTS = 2
 IPA_KERNELS = ("ipa_scalars", "ipa_dots", "ipa_combine", "ipa_fold")
 MESH_E2E_KERNELS = ("padd", "padd_reduce", "msm_tree", "poseidon",
                     "poseidon_spread",
-                    "sumcheck_coeffs", "sumcheck_fold", "sumcheck_eq")
+                    "sumcheck_coeffs", "sumcheck_fold", "sumcheck_eq",
+                    "sumcheck_encode")
 E2E_KERNELS = MESH_E2E_KERNELS + IPA_KERNELS
 # the IPA phase: the compressed SNARK's two proofs (curve, log2 n), and
 # the middle round checked
@@ -860,7 +865,7 @@ def phase_poseidon(torch, dev, mesh_shapes) -> dict:
 
 def phase_sumcheck(torch, dev, rnd) -> dict:
     """A device nlookup_prove against the host route, and K6 against its
-    plain versions; returns the three kernel-table rows."""
+    plain versions; returns the four kernel-table rows."""
     from reef_tpu_torch.backend import sumcheck as SC
     from reef_tpu_torch.models.prover_step import random_elems
     from reef_tpu_torch.ops import field as F
@@ -902,6 +907,7 @@ def phase_sumcheck(torch, dev, rnd) -> dict:
     r = random_elems((1,), g, dev)
     hv = (T[:, :half], T[:, half:], E[:, :half], E[:, half:])
     term = T[:, :half].contiguous()
+    codes = torch.randint(0, 4, (ENCODE_N,), generator=g).to(dev)
     runs = {
         "sumcheck_coeffs": (lambda: K.coeffs(lf, *hv, st),
                             lambda: K.coeffs_plain(lf, *hv, st),
@@ -912,7 +918,19 @@ def phase_sumcheck(torch, dev, rnd) -> dict:
         "sumcheck_eq": (lambda: (K.eq_step(lf, term, r, E),),
                         lambda: (K.eq_step_plain(lf, term, r, E),),
                         5 * half * 32, 2 * half),
+        # 8 bytes a value in, 32 an entry out; one product a value
+        "sumcheck_encode": (lambda: (K.encode(lf, codes, ENCODE_PAD),),
+                            lambda: (K.encode_plain(lf, codes, ENCODE_PAD),),
+                            8 * ENCODE_N + 32 * ENCODE_PAD, ENCODE_N),
     }
+    shapes = {"sumcheck_encode": f"({ENCODE_N},) int64 values -> (8, "
+                                 f"{ENCODE_PAD}) int32 table"}
+    sources = {"sumcheck_encode": "reef_tpu_torch/csrc/sc_encode.cu"}
+    replaces = {"sumcheck_eq": "reef_tpu/ops/sumcheck_device.py:87 (XLA, "
+                               "not a pallas_call)",
+                "sumcheck_encode": "reef_tpu/ops/sumcheck_device.py:123 "
+                                   "(lf.encode on the host, then the "
+                                   "copy)"}
     rows, res = {}, {}
     for name, (kern, pl, nbytes, muls) in runs.items():
         got, want = kern(), pl()
@@ -926,15 +944,14 @@ def phase_sumcheck(torch, dev, rnd) -> dict:
                      "int_bound_ms": int_bound_ms(muls * MADS_PER_MUL)}
         rows[name] = {
             "name": name, "route": "cuda",
-            "source": "reef_tpu_torch/csrc/sumcheck.cu",
-            "replaces": ("reef_tpu/ops/sumcheck_device.py:87 (XLA, not a "
-                         "pallas_call)" if name == "sumcheck_eq" else
-                         "reef_tpu/ops/sumcheck_device.py:43 (XLA, not a "
-                         "pallas_call)"),
+            "source": sources.get(name, "reef_tpu_torch/csrc/sumcheck.cu"),
+            "replaces": replaces.get(name, "reef_tpu/ops/sumcheck_device.py"
+                                           ":43 (XLA, not a pallas_call)"),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": None,
             "int_bound_ms": res[name]["int_bound_ms"],
-            "shape": f"(8, {2 * half}) int32 tables, half = {half}"}
+            "shape": shapes.get(name, f"(8, {2 * half}) int32 tables, "
+                                      f"half = {half}")}
     # the coefficient launch at every round of a 2^(LOG+1)-entry sumcheck,
     # with and without a sponge state: exact, one launch a round; the fold
     # and the eq step at every width too (the shards' and the lead's)
@@ -1550,6 +1567,7 @@ KERNEL_ROWS = {"padd_kernel": ("padd",),
                "coeff_kernel": ("sumcheck_coeffs",),
                "fold_kernel": ("sumcheck_fold",),
                "eq_kernel": ("sumcheck_eq",),
+               "encode_kernel": ("sumcheck_encode",),
                "mont_mul_kernel": ("mont_mul",),
                "mont_redc_kernel": ("mont_redc",),
                "ipa_scalars_kernel": ("ipa_scalars",),

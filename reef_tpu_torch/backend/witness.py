@@ -17,7 +17,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 from ..ops import field as F
-from ..utils.metrics import count
+from ..utils.metrics import count, span
 from . import routes
 from .step_circuit import StepCircuit
 from .sumcheck import nlookup_prove
@@ -297,6 +297,7 @@ class WitnessGenerator:
             from ..parallel.mesh import process_mesh, table_cache
             cache = (table_cache(LFQ, table, process_mesh())
                      if on == routes.MESH else DeviceTableCache(LFQ, table))
+            count("Solver", "nl_table_card")
         self._dev_caches[key] = cache
         return cache
 
@@ -320,16 +321,22 @@ class WitnessGenerator:
             sct = [t % p for t in table]
             sct.extend([0] * ((1 << sc_l) - len(sct)))
             cache = FV.MontTable(sct, p)
+            count("Solver", "nl_table_host")
             self._host_caches[key] = cache
         return cache
 
     def _fill_nl(self, wits, tag: str, table, qs, vs, prev_q, prev_v,
                  doc_hash, result, attr: str = "nl"):
         f = F.FQ
+        # the table as the route reads it: a device cache on the card or
+        # the mesh, else (on the host) the host cache
+        with span("Solver", "nl_table"):
+            device_cache = self._maybe_device_cache(tag, table)
+            host_cache = (self._maybe_host_cache(tag, table)
+                          if device_cache is None else None)
         proof = nlookup_prove(
             f, table, qs, vs, prev_q, prev_v, tag, doc_hash,
-            device_cache=self._maybe_device_cache(tag, table),
-            host_cache=self._maybe_host_cache(tag, table))
+            device_cache=device_cache, host_cache=host_cache)
         sc_l = len(proof.sc_rs)
         for i, q in enumerate(qs):
             for j in range(sc_l):

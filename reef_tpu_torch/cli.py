@@ -32,8 +32,9 @@ than the wall of the stage around it):
                table, circuit (their cache misses), restamp (a circuit
                cache hit under another document commitment hash)
   Solver       fa_solver+wit (solver and folds); solve (each batch on
-               the request thread), wait_fold (blocked on the fold
-               worker's queue and join)
+               the request thread), nl_table (inside solve: each nlookup
+               table's preparation for the sumcheck route), wait_fold
+               (blocked on the fold worker's queue and join)
   Prover       doc_transform, prewarm, fold_step (the fold worker),
                compressed_snark, spartan.sumcheck1, spartan.sumcheck2,
                spartan.open (each Spartan proof, the CAP's too),
@@ -51,7 +52,9 @@ than the wall of the stage around it):
 
 `count` rows (unit `events`): Host gc_collections; Compiler
 table_cache_hit/_miss, circuit_cache_hit/_miss, circuit_restamp; Solver
-device_cache_hit/_miss; Prover fold_steps; MSM basis_upload; IPA device,
+device_cache_hit/_miss, nl_table_card (a device table built for the card
+or the mesh), nl_table_host (a host Montgomery table built); Prover
+fold_steps; MSM basis_upload; IPA device,
 mesh, host (the round engine each IPA took); Mesh shards, gather_bytes.
 `constraints` and `space` rows as in the reference.
 """

@@ -47,6 +47,12 @@ static __constant__ u32 FIELD_ONE[2][8] = {
      0xffffffffu, 0xffffffffu, 0xffffffffu, 0x3fffffffu},
     {0xfffffffdu, 0x5b2b3e9cu, 0xe3420567u, 0x992c350bu,
      0xffffffffu, 0xffffffffu, 0xffffffffu, 0x3fffffffu}};
+// R^2 mod p: fe_mul(x, R^2) is x's Montgomery form x R mod p (x < p)
+static __constant__ u32 FIELD_R2[2][8] = {
+    {0x0000000fu, 0x8c78ecb3u, 0x8b0de0e7u, 0xd7d30dbdu,
+     0xc3c95d18u, 0x7797a99bu, 0x7b9cb714u, 0x096d41afu},
+    {0x0000000fu, 0xfc9678ffu, 0x891a16e3u, 0x67bb433du,
+     0x04ccf590u, 0x7fae2310u, 0x7ccfdaa9u, 0x096d41afu}};
 
 struct fe {
     u32 v[8];

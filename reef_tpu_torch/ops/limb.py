@@ -20,7 +20,7 @@ the plain layout, mod 2^32 for the kernels).  Every result is canonical
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -111,6 +111,16 @@ class LimbField:
         return c.reshape((N,) + (1,) * (like.dim() - 1))
 
 
+def small_values(xs: Sequence[int]) -> Optional[np.ndarray]:
+    """xs as a flat int64 array where every value lies in [0, 2^63), else
+    None."""
+    try:
+        small = np.asarray(xs, dtype=np.int64).reshape(-1)
+    except OverflowError:
+        return None
+    return small if (small >= 0).all() else None
+
+
 def mont_words(f: LimbField, xs: Sequence[int]) -> np.ndarray:
     """(len(xs), 8) uint32 limbs of each x's Montgomery form.  Runs the
     native host encoder (ops.native_fieldvec) where it is built, else
@@ -118,11 +128,8 @@ def mont_words(f: LimbField, xs: Sequence[int]) -> np.ndarray:
     from . import native_fieldvec as FV
     if not FV.available():
         return _ints_to_words([f.mont(x) for x in xs], np.uint32)
-    try:
-        small = np.asarray(xs, dtype=np.int64).reshape(-1)
-    except OverflowError:
-        small = None
-    if small is not None and (small >= 0).all():
+    small = small_values(xs)
+    if small is not None:
         w = np.zeros((len(small), N32), np.uint32)
         w[:, 0] = small & 0xFFFFFFFF
         w[:, 1] = small >> 32

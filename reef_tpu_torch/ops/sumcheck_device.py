@@ -46,9 +46,7 @@ def _table_words(lf: LimbField, table: List[int]) -> Tuple[int, np.ndarray]:
     """(ell, the table Montgomery-encoded and padded with zeros to 2^ell
     entries as (8, 2^ell) int32 words)."""
     ell = max(1, (len(table) - 1).bit_length())
-    words = np.zeros((1 << ell, limb.N32), np.uint32)
-    words[:len(table)] = limb.mont_words(lf, table)
-    return ell, words.view(np.int32).T
+    return ell, K.table_words(lf, table, 1 << ell)
 
 
 class DeviceTableCache:
@@ -59,7 +57,13 @@ class DeviceTableCache:
     two, at most 2^ell.  An MSB-first round pairs entries j and j + half;
     while half >= m both lie on shard j mod m, at local k and k + half / m,
     so every shard runs the ordinary round on its own entries.  `device`
-    is the lead, devices[0]."""
+    is the lead, devices[0].
+
+    A table of values in [0, 2^63) (a document's codes; an automaton's
+    packed rows while they fit) goes to each device as its shard's
+    values, 8 bytes an entry, and is encoded there (K6 `encode`); a table
+    holding a larger or a negative value is encoded on the host and its
+    32-byte entries copied."""
 
     def __init__(self, lf: LimbField, table: List[int], device=None,
                  devices=None):
@@ -67,14 +71,22 @@ class DeviceTableCache:
         self.lf = lf
         self.devices = [resolve(d) for d in (devices or [device])]
         self.device = self.devices[0]
-        self.ell, words = _table_words(lf, table)
+        self.ell = max(1, (len(table) - 1).bit_length())
         m = len(self.devices)
         if m & (m - 1) or m > 1 << self.ell:
             raise ValueError(f"a table of 2^{self.ell} entries does not "
                              f"split over {m} devices (a power of two, at "
                              "most the table's size)")
-        self.t_shards = self.split(torch.from_numpy(
-            np.ascontiguousarray(words)))
+        vals = limb.small_values(table)
+        if vals is not None:
+            raw, n_pad = torch.from_numpy(vals), (1 << self.ell) // m
+            self.t_shards = [K.encode(lf, raw[d::m].contiguous().to(dev),
+                                      n_pad)
+                             for d, dev in enumerate(self.devices)]
+        else:
+            words = _table_words(lf, table)[1]
+            self.t_shards = self.split(torch.from_numpy(
+                np.ascontiguousarray(words)))
 
     def split(self, tab: torch.Tensor) -> List[torch.Tensor]:
         """An (8, 2^ell) table split as the shards are, shard d on

@@ -1,4 +1,5 @@
-"""K6: the nlookup sumcheck round's three kernels (csrc/sumcheck.cu).
+"""K6: the nlookup sumcheck round's three kernels (csrc/sumcheck.cu) and
+the table encode (csrc/sc_encode.cu).
 
 Not the port of a TPU kernel: the JAX package computes these steps in XLA
 (ops/sumcheck_device.py `_one_round_kernel` and `_build_eq_kernel`).  They
@@ -17,13 +18,16 @@ on CPU tensors:
              in one launch (`coeff_plan`);
   fold    -> both tables folded by the challenge r, an (8, 1) row that
              stays on the device;
-  eq_step -> one doubling step of the eq table's running-claim term.
+  eq_step -> one doubling step of the eq table's running-claim term;
+  encode  -> an (n,) int64 tensor of a table's values in [0, 2^63) as
+             the (8, n_pad) Montgomery table, zero past n.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..utils import cudabuild
@@ -230,4 +234,48 @@ def eq_step(lf: LimbField, term: torch.Tensor, q: torch.Tensor,
         q.data_ptr(), q.stride(0), 0 if eq is None else eq.data_ptr(),
         out.data_ptr(), lf.field_id)
     cudabuild.count("sumcheck_eq")
+    return out
+
+
+# ---- table encode -----------------------------------------------------------
+
+def table_words(lf: LimbField, xs, n_pad: int) -> np.ndarray:
+    """The host encoder's table: the values xs Montgomery-encoded
+    (limb.mont_words) and padded with zeros to n_pad entries, as (8,
+    n_pad) int32 words."""
+    words = np.zeros((n_pad, limb.N32), np.uint32)
+    words[:len(xs)] = limb.mont_words(lf, xs)
+    return words.view(np.int32).T
+
+
+def encode_plain(lf: LimbField, vals: torch.Tensor,
+                 n_pad: int) -> torch.Tensor:
+    """The encode kernel's plain version, any device: the host encoder's
+    table of the values, each read as 64 unsigned bits as the kernel
+    reads it."""
+    xs = vals.cpu().numpy().view(np.uint64).tolist()
+    return torch.from_numpy(np.ascontiguousarray(
+        table_words(lf, xs, n_pad))).to(vals.device)
+
+
+def encode(lf: LimbField, vals: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """A new (8, n_pad) int32 table: column k the Montgomery form of
+    vals[k] for k < n, 0 after; `vals` a contiguous (n,) int64 tensor,
+    each value read as 64 unsigned bits (v + 2^64 for a negative v: the
+    caller keeps to [0, 2^63), limb.small_values)."""
+    if vals.dtype != torch.int64 or vals.dim() != 1 or \
+            not vals.is_contiguous():
+        raise ValueError(f"encode: values {vals.dtype} {tuple(vals.shape)} "
+                         "are not a contiguous (n,) int64 tensor")
+    if not 0 < n_pad or vals.shape[0] > n_pad:
+        raise ValueError(f"encode: {vals.shape[0]} values do not fit "
+                         f"{n_pad} entries")
+    if not cudabuild.on_card("encode", vals):
+        return encode_plain(lf, vals, n_pad)
+    out = torch.empty((limb.N32, n_pad), dtype=torch.int32,
+                      device=vals.device)
+    cudabuild.launch("sc_encode", "reef_sc_encode", vals.device,
+                     vals.data_ptr(), vals.shape[0], n_pad, out.data_ptr(),
+                     lf.field_id)
+    cudabuild.count("sumcheck_encode")
     return out

@@ -54,6 +54,7 @@ LIBS = {
                            P],
         "reef_sc_fold": [P, P, P, P, L, L, P, L, P, P, L, I, P],
         "reef_sc_eq_step": [P, L, P, L, P, P, I, P]}),
+    "sc_encode": ("sc_encode.cu", {"reef_sc_encode": [P, L, L, P, I, P]}),
     "mont": ("mont.cu", {"reef_mont_mul": [P, P, P, L, I, P],
                          "reef_mont_redc": [P, P, L, I, P]}),
     "ipa": ("ipa.cu", {
@@ -63,15 +64,16 @@ LIBS = {
         "reef_ipa_fold": [P, P, P, L, L, B, I, P]}),
 }
 
-# the kernels whose launches are counted (the K6 library has three, the
-# K3/K4 library two); "padd" counts every K1 launch, "padd_spread" those
-# of its group-per-add kernel and "padd_reduce" its halving reduces;
-# "poseidon" counts every K5 launch, "poseidon_spread" those of its
-# block-per-state kernel; the IPA library's kernels count one each
+# the kernels whose launches are counted (the K6 libraries have four:
+# three round kernels and the table encode, the K3/K4 library two); "padd"
+# counts every K1 launch, "padd_spread" those of its group-per-add kernel
+# and "padd_reduce" its halving reduces; "poseidon" counts every K5
+# launch, "poseidon_spread" those of its block-per-state kernel; the IPA
+# library's kernels count one each
 KERNELS = ("padd", "padd_spread", "padd_reduce", "msm_tree", "poseidon",
            "poseidon_spread", "sumcheck_coeffs", "sumcheck_fold",
-           "sumcheck_eq", "mont_mul", "mont_redc", "ipa_scalars", "ipa_dots",
-           "ipa_combine", "ipa_fold")
+           "sumcheck_eq", "sumcheck_encode", "mont_mul", "mont_redc",
+           "ipa_scalars", "ipa_dots", "ipa_combine", "ipa_fold")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _COUNTS: Dict[str, int] = {name: 0 for name in KERNELS}

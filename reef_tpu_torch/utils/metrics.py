@@ -11,6 +11,9 @@ and for the counters of the IPA round engines IPA (`device`, `mesh`,
 Compiler's span `restamp` and counter `circuit_restamp` mark a circuit
 cache hit under another document commitment hash (backend/framework.py
 `pub_setup`), beside its counters `circuit_cache_hit`/`_miss`.
+Solver's span `nl_table` and counters `nl_table_card`/`_host` time and
+count each nlookup table's preparation for the sumcheck route it takes
+(backend/witness.py `_fill_nl`).
 
 Beyond the reference: spans and event counters recorded where the work
 happens.  `span(component, name)` and `count(component, name, n)` are

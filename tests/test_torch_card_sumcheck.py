@@ -1,5 +1,6 @@
-"""K6's three kernels (csrc/sumcheck.cu) on the card, exactly against
-their plain versions, each launch counted.
+"""K6's three round kernels (csrc/sumcheck.cu) and its table encode
+(csrc/sc_encode.cu) on the card, exactly against their plain versions,
+each launch counted.
 
 The plain versions are held to the JAX package on the CPU by
 tests/test_torch_sumcheck.py; this file imports neither JAX nor the JAX
@@ -7,11 +8,13 @@ package (the card lane, `pytest --noconftest -m cuda
 tests/test_torch_card_*.py`).
 """
 
+import numpy as np
 import pytest
 import torch
 
 from _torch_card_support import rows
 from reef_tpu_torch.ops import limb
+from reef_tpu_torch.ops import sumcheck_device as SD
 from reef_tpu_torch.ops import sumcheck_kernel as K
 from reef_tpu_torch.utils import cudabuild
 
@@ -65,3 +68,32 @@ def test_coeffs_match_plain_at_every_round_on_card():
             gp, sp = K.coeffs_plain(lf, *halves, state)
             assert torch.equal(g, gp)
             assert (s is None and sp is None) or torch.equal(s, sp)
+
+
+@pytest.mark.parametrize("table", ["dna_1mb", "near_2_63"])
+def test_encode_matches_plain_on_card(table):
+    """The table encode on the card, exactly against its plain version and
+    the host encoder's table: the flagship's document table (1,000,000
+    DNA codes padded to 2^20) and a 2^14 table of values just below
+    2^63, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lf, dev = limb.FQ, torch.device("cuda")
+    rng = np.random.default_rng(11)
+    if table == "dna_1mb":
+        vals, n_pad = rng.integers(0, 4, size=1_000_000), 1 << 20
+    else:
+        vals = (1 << 63) - 1 - rng.integers(0, 1 << 40, size=(1 << 14) - 3)
+        n_pad = 1 << 14
+    vals = torch.from_numpy(vals.astype(np.int64))
+    before = cudabuild.launch_counts()["sumcheck_encode"]
+    got = K.encode(lf, vals.to(dev), n_pad)
+    torch.cuda.synchronize()
+    assert cudabuild.launch_counts()["sumcheck_encode"] == before + 1
+    assert torch.equal(got.cpu(), K.encode_plain(lf, vals, n_pad))
+    cache = SD.DeviceTableCache(lf, vals.tolist(), device=dev)
+    assert cudabuild.launch_counts()["sumcheck_encode"] == before + 2
+    assert cache.ell == n_pad.bit_length() - 1
+    words = SD._table_words(lf, vals.tolist())[1]
+    assert torch.equal(cache.t_shards[0].cpu(),
+                       torch.from_numpy(np.ascontiguousarray(words)))

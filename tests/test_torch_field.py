@@ -181,6 +181,7 @@ def test_cuda_header_constants(name):
     assert (p * lf.n0inv32 + 1) % (1 << 32) == 0
     assert _const_table(src, "FIELD_B3")[fid] == lf.mont(15)
     assert _const_table(src, "FIELD_ONE")[fid] == lf.r_int
+    assert _const_table(src, "FIELD_R2")[fid] == lf.r_int * lf.r_int % p
 
 
 def _asm_chain(src: str, fn: str):
@@ -285,3 +286,8 @@ def test_cuda_header_carry_chains(name):
         assert num(hf.fe_mul(words(x), words(y))) == x * y * rinv % p
         assert num(hf.fe_add(words(x), words(y))) == (x + y) % p
         assert num(hf.fe_sub(words(x), words(y))) == (x - y) % p
+    # the table encode (csrc/sc_encode.cu): fe_mul(v, R^2) of a 64-bit v
+    # is its Montgomery form
+    r2 = words(_const_table(_header(), "FIELD_R2")[lf.field_id])
+    for v in (0, 1, 255, (1 << 63) - 1, (1 << 64) - 1):
+        assert num(hf.fe_mul(words(v), r2)) == lf.mont(v)

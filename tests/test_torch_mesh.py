@@ -328,6 +328,8 @@ def _launch(which: str):
         K.fold(lf, T[:, :2], T[:, 2:], T[:, :2], T[:, 2:], T[:, :1])
     elif which == "eq_step":
         K.eq_step(lf, T, T[:, :1])
+    elif which == "encode":
+        K.encode(lf, z(3, dtype=torch.int64), 4)
     elif which == "mont_mul":
         a = z((16, 4), dtype=torch.int64)
         field_kernel.mont_mul(lf, a, a)
@@ -336,8 +338,8 @@ def _launch(which: str):
 
 
 @pytest.mark.parametrize("which", ["padd", "padd_reduce", "tree", "poseidon",
-                                   "coeffs", "fold", "eq_step", "mont_mul",
-                                   "mont_redc"])
+                                   "coeffs", "fold", "eq_step", "encode",
+                                   "mont_mul", "mont_redc"])
 def test_launchers_run_with_their_tensors_card_current(which, monkeypatch,
                                                        stand_in_card):
     """`<<<>>>` launches on the current device, so every wrapper calls its

@@ -7,19 +7,26 @@ The route table is held case by case: each operation, on a CPU engine
 routes, and a stand-in card (the engine device set to CUDA, nothing
 launched), with a process mesh of one device and of four, at n just
 below the operation's floor, at the floor, and at the floor with the
-floor unset.
+floor unset.  A prove builds each nlookup table only as the route that
+reads it takes it, and proves the same bytes on either route.
 """
 
+import csv
+import random
+import secrets
 import threading
 
 import pytest
 import torch
 
-from _torch_support import (no_compile_cache_writes,  # noqa: F401
-                            one_torch_thread)
+from _torch_support import (device_selection_restored,  # noqa: F401
+                            no_compile_cache_writes, one_torch_thread,
+                            run_cli)
+from reef_tpu_torch import cli
 from reef_tpu_torch.backend import commitment as CM
 from reef_tpu_torch.backend import routes
 from reef_tpu_torch.ec.pasta import PALLAS
+from reef_tpu_torch.ops import sumcheck_device as SD
 from reef_tpu_torch.parallel import mesh as PM
 from reef_tpu_torch.utils import device, metrics
 
@@ -139,3 +146,52 @@ def test_device_bases_upload_once_a_process(monkeypatch):
         th.join(timeout=60)
     assert not any(th.is_alive() for th in threads)
     assert len(made) == 1 and all(g is got[0] for g in got)
+
+
+def _thread_seeded_randbelow():
+    """`secrets.randbelow` drawn from one seeded generator a thread, each
+    keyed by the thread's target (a prove's threads draw their blinds
+    concurrently, each in a fixed order)."""
+    rngs = {}
+
+    def randbelow(n):
+        key = threading.current_thread().name.split(" (", 1)[-1]
+        return rngs.setdefault(key, random.Random(key)).randrange(n)
+    return randbelow
+
+
+def test_a_prove_builds_the_doc_table_for_its_route_alone(
+        tmp_path, monkeypatch, device_selection_restored):
+    """A 1,030-byte DNA prove on the CPU: with the document table's
+    sumcheck on the device route (the kernels' plain versions), one
+    device table is built and no host Montgomery table; on the host
+    route, one host table and no device table.  With the same blinds the
+    two proofs are equal byte for byte."""
+    monkeypatch.chdir(tmp_path)
+    rng = random.Random(23)
+    doc = "".join(rng.choice("ACGT") for _ in range(1025)) + "ACGTA"
+    (tmp_path / "doc.txt").write_text(doc)
+    argv = ["-d", "doc.txt", "--device", "cpu"]
+    run_cli(cli.main, ["dna", "--commit"] + argv)
+    rounds = []
+    orig = SD.device_sumcheck_rounds
+    monkeypatch.setattr(SD, "device_sumcheck_rounds", lambda lf, cache, *a:
+                        rounds.append(cache.ell) or orig(lf, cache, *a))
+    device_doc = routes.Policy(cpu=True, msm=None, rows=None, ipa=None,
+                               sumcheck=len(doc))
+    proofs, counts = {}, {}
+    for name, policy in (("card", device_doc), ("host", routes.DEFAULT)):
+        monkeypatch.setattr(secrets, "randbelow", _thread_seeded_randbelow())
+        with routes.use(policy):
+            run_cli(cli.main, ["dna", "--prove", "-r", ".*ACGTA.*",
+                               "--proof-name", f"{name}.proof",
+                               "--metrics", f"{name}.csv"] + argv)
+        proofs[name] = (tmp_path / f"{name}.proof").read_bytes()
+        with open(tmp_path / f"{name}.csv", newline="") as fh:
+            counts[name] = {r[2]: int(r[3]) for r in csv.reader(fh)
+                            if r[0] == "count" and r[1] == "Solver"}
+        assert counts[name].get(f"nl_table_{name}") == 1, counts[name]
+        other = "host" if name == "card" else "card"
+        assert f"nl_table_{other}" not in counts[name], counts[name]
+    assert rounds and set(rounds) == {11}       # the doc table alone, 2^11
+    assert proofs["card"] == proofs["host"]

@@ -9,14 +9,17 @@ round is held to big-int python; and a proof made with the document
 sumcheck forced onto the device route verifies under the JAX package's
 verifier.  The coefficient kernel's three-product form must equal the
 reference's four-product sums, and its launch plan must make one launch
-a round.  The K6 kernels are held against their plain versions on the
-card by tests/test_torch_card_sumcheck.py, which imports no JAX.
+a round.  A table encoded from its values (K6 `encode`, whole or split
+over a mesh) must be word for word the host encoder's.  The K6 kernels
+are held against their plain versions on the card by
+tests/test_torch_card_sumcheck.py, which imports no JAX.
 """
 
 import contextlib
 import io
 import random
 
+import numpy as np
 import pytest
 import torch
 
@@ -247,3 +250,88 @@ def test_coeff_plan_is_one_launch_a_round(log_half, monkeypatch,
     K.coeffs(lf, T[:, :half], T[:, half:], T[:, :half], T[:, half:], st)
     assert cudabuild.launch_counts()["sumcheck_coeffs"] == before + 1
     assert calls == [(half, grid, threads, grid > 1, grid > 1, True, 9)]
+
+
+@pytest.mark.parametrize("m", [1, 2, 4])
+@pytest.mark.parametrize("n", [1, 3, 1000, (1 << 12) + 5])
+@pytest.mark.parametrize("values", ["byte", "int63", "big"])
+def test_table_encode_matches_host_words(values, n, m, monkeypatch):
+    """A DeviceTableCache of n values below 2^8 or 2^63, whole or split
+    over m CPU devices, is the host encoder's table (`_table_words`)
+    word for word, each shard its strided slice, and each shard is one
+    `encode` of that shard's values; `encode_plain` of the values is the
+    whole table.  A table holding a value of 2^63 or more takes the host
+    encoder."""
+    lf = limb.FQ
+    rng = random.Random(1000 * n + m)
+    top = {"byte": 1 << 8, "int63": 1 << 63, "big": lf.p_int}[values]
+    table = [rng.randrange(top) for _ in range(n)]
+    table[-1] = top - 1
+    if values == "big":
+        table[0] = 1 << 63
+    ell, words = SD._table_words(lf, table)
+    want = torch.from_numpy(np.ascontiguousarray(words))
+    if m > 1 << ell:
+        with pytest.raises(ValueError, match="does not split"):
+            SD.DeviceTableCache(lf, table, devices=["cpu"] * m)
+        return
+    encoded = []
+    encode = K.encode
+    monkeypatch.setattr(K, "encode", lambda lf_, vals, n_pad: encoded.append(
+        (vals.tolist(), n_pad)) or encode(lf_, vals, n_pad))
+    cache = SD.DeviceTableCache(lf, table, devices=["cpu"] * m)
+    assert cache.ell == ell and len(cache.t_shards) == m
+    for d, shard in enumerate(cache.t_shards):
+        assert shard.dtype == torch.int32 and shard.is_contiguous()
+        assert torch.equal(shard, want[:, d::m]), d
+    if values == "big":
+        assert encoded == []
+        return
+    assert encoded == [(table[d::m], (1 << ell) // m) for d in range(m)]
+    assert torch.equal(K.encode_plain(lf, torch.tensor(table), 1 << ell),
+                       want)
+
+
+def test_encode_reads_values_unsigned():
+    """`encode_plain` reads each int64 as 64 unsigned bits, as the kernel
+    does (v + 2^64 for a negative v), and `limb.small_values`, which
+    sends a table to `encode`, takes only values in [0, 2^63)."""
+    lf = limb.FQ
+    vals = [-1, -(1 << 63), 5, (1 << 63) - 1]
+    unsigned = [v % (1 << 64) for v in vals]
+    assert torch.equal(
+        K.encode_plain(lf, torch.tensor(vals), 8),
+        torch.from_numpy(np.ascontiguousarray(
+            K.table_words(lf, unsigned, 8))))
+    assert limb.small_values(vals[2:]).tolist() == vals[2:]
+    for table in (vals, [5, 1 << 63], [lf.p_int - 1]):
+        assert limb.small_values(table) is None
+
+
+def test_encode_launch(monkeypatch, stand_in_card):
+    """On a card `encode` makes one launch with the values' pointer, their
+    count, the padded length, a fresh (8, n_pad) table and the field, the
+    values' card current, and counts it; it refuses values that are not
+    a contiguous int64 row or do not fit."""
+    calls = []
+
+    class Lib:
+        def reef_sc_encode(self, vals, n, n_pad, out, field, stream):
+            calls.append((vals, n, n_pad, out, field,
+                          stand_in_card.current))
+            return 0
+
+    monkeypatch.setattr(K.cudabuild, "library", lambda name: Lib())
+    monkeypatch.setattr(K.cudabuild, "on_card", lambda name, t: True)
+    vals = torch.arange(5, dtype=torch.int64)
+    before = cudabuild.launch_counts()["sumcheck_encode"]
+    out = K.encode(limb.FP, vals, 8)
+    assert cudabuild.launch_counts()["sumcheck_encode"] == before + 1
+    assert out.shape == (8, 8) and out.dtype == torch.int32
+    assert calls == [(vals.data_ptr(), 5, 8, out.data_ptr(),
+                      limb.FP.field_id, vals.device)]
+    for bad, n_pad in ((vals.to(torch.int32), 8), (vals[::2], 8),
+                       (vals.reshape(1, 5), 8), (vals, 4), (vals, 0)):
+        with pytest.raises(ValueError):
+            K.encode(limb.FQ, bad, n_pad)
+    assert len(calls) == 1

@@ -24,6 +24,7 @@ BENCH = os.path.join(ROOT, "reefbench")
 # the readers this port's spans feed, and the spans they read
 READERS = {
     "prover.solve_s": [("Solver", "solve")],
+    "prover.nl_table_s": [("Solver", "nl_table")],
     "prover.fold_step_s": [("Prover", "fold_step")],
     "prover.fold_wait_s": [("Solver", "wait_fold")],
     "prover.spartan_sumcheck_s": [("Prover", "spartan.sumcheck1"),
@@ -45,6 +46,7 @@ MESH_READERS = {"mesh.issue_s.prove": ("Mesh", "issue"),
 # of the parent's spans
 NESTED = [
     (("Solver", "solve"), ("Solver", "fa_solver+wit")),
+    (("Solver", "nl_table"), ("Solver", "solve")),
     (("Solver", "wait_fold"), ("Solver", "fa_solver+wit")),
     (("Prover", "spartan.open"), ("Prover", "compressed_snark")),
     (("Prover", "ipa"), ("Prover", "spartan.open")),
@@ -59,9 +61,15 @@ NESTED = [
 
 @pytest.fixture
 def e2e_argv(monkeypatch, tmp_path):
-    """A tiny DNA `--e2e` on the host routes, in its own directory; the
-    last request's spans and the engine device are restored after."""
+    """A tiny DNA `--e2e` on the host routes, in its own directory, from
+    empty automaton, table and circuit caches (another test file in the
+    same worker may have proved this document's shape: its prove and
+    verify would then build no circuit); the caches, the last request's
+    spans and the engine device are restored after."""
     monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(cli, "_SAFA_CACHE", {})
+    monkeypatch.setattr(FW, "_TT_CACHE", {})
+    monkeypatch.setattr(FW, "_CIRCUIT_CACHE", {})
     monkeypatch.setattr(device, "_SELECTED", None)
     monkeypatch.setattr(metrics, "_LAST", metrics._LAST)
     (tmp_path / "doc.txt").write_text("ACGTTGCAAC")
