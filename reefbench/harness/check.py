@@ -11,7 +11,9 @@ Four numbers, each an exact comparison (limit 0):
 - `proofs_off`: proofs whose claim about the document is not the
   document's, or not the circuit's (every proof), or whose opening
   against the commitment's rows fails (a sample of `OPENED_PROOFS`
-  drawn from the seed), by `reference/proof.py`;
+  drawn from the seed), by `reference/proof.py`; under `-y` the claim
+  about the document is the opening's last value, and every proof's
+  split of v is checked too;
 - `failed_requests`: requests that raised, or verifies that gave no
   verdict.
 """

@@ -37,7 +37,8 @@ def process_start() -> float:
 
 class Run:
     """What the per-layer readers read: the window's requests, each with
-    its stage timers and route seconds, and the device summary."""
+    its stage timers, counters and route seconds, and the device
+    summary."""
 
     def __init__(self, requests: List[dict], device: dict):
         self.requests, self.device = requests, device
@@ -54,6 +55,11 @@ class Run:
 
     def route_mean(self, role: str, route: str):
         return self._mean(role, lambda r: r["routes"].get(route))
+
+    def count_mean(self, role: str, component: str, name: str):
+        """A counter's events, mean a request of `role`."""
+        return self._mean(role, lambda r: r["stages"].get(
+            ("count", component, name)))
 
 
 class Worker:

@@ -45,14 +45,21 @@ def _resolve(module: str, attr: str):
     return owner, name
 
 
-def read_stages(path: str) -> Dict[Tuple[str, str], float]:
-    """The `--metrics` CSV's timers, in seconds."""
-    out: Dict[Tuple[str, str], float] = {}
+def read_stages(path: str) -> Dict[tuple, float]:
+    """The `--metrics` CSV's timers, in seconds, under (component, name),
+    and its counters' events under ("count", component, name)."""
+    out: Dict[tuple, float] = {}
     with open(path, newline="") as fh:
         for row in csv.reader(fh):
-            if len(row) == 5 and row[0] == "time":
-                key = (row[1], row[2])
-                out[key] = out.get(key, 0.0) + int(row[3]) / 1e6
+            if len(row) != 5:
+                continue
+            if row[0] == "time":
+                key, value = (row[1], row[2]), int(row[3]) / 1e6
+            elif row[0] == "count":
+                key, value = ("count", row[1], row[2]), int(row[3])
+            else:
+                continue
+            out[key] = out.get(key, 0) + value
     return out
 
 

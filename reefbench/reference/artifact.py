@@ -34,6 +34,7 @@ FIELDS = {
                          "eval_proof", "running_q", "eq_proof", "l_commit",
                          "cap_proof"),
     "IpaProof": ("Ls", "Rs", "a_final", "rho_final"),
+    "EqualityProof": ("alpha", "z"),
 }
 # the IVC proof's first two fields; the rest is the folds' and SNARKs'
 IVC_FIELDS = ("n_steps", "zn")

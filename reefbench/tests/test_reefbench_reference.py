@@ -122,7 +122,7 @@ def test_the_proof_holds_to_the_document(dna_pair):
     assert proof.mismatches(cmt, prf, u, [], opening=False) == [
         "point not the circuit's", "claim not the circuit's"]
     with pytest.raises(ValueError):
-        proof.mismatches(cmt, prf, u, ["-y"])
+        proof.mismatches(cmt, prf, u, ["-m"])
 
 
 def test_a_proof_made_over_another_document_is_refused(tmp_path, dna_pair):

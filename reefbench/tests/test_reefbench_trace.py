@@ -54,3 +54,30 @@ def test_busy_idle_and_roofline():
     assert s["roofline_pct"] == pytest.approx(100 * 0.5 / 1.39995, rel=1e-6)
     ops = dict(s["breakdown"]["device_ops"])
     assert ops["void tree_level<0, true>(int)"] == pytest.approx(1.3)
+
+
+def test_stages_keep_timers_and_counters(tmp_path):
+    """A `--metrics` CSV with both kinds of row: timers in seconds under
+    (component, name), counters' events under ("count", component, name),
+    summed over repeated rows; other rows left out."""
+    from harness import loop
+    path = tmp_path / "stages.csv"
+    path.write_text(
+        "time,Solver,nl_table,38000,μs\n"
+        "time,Solver,nl_table,2000,μs\n"
+        "constraints,Compiler,r1cs,123,constraints\n"
+        "count,Solver,nl_table_card,1,events\n"
+        "count,Solver,nl_table_card,2,events\n"
+        "count,Prover,fold_steps,1,events\n", encoding="utf-8")
+    stages = trace.read_stages(str(path))
+    assert stages == {("Solver", "nl_table"): pytest.approx(0.04),
+                      ("count", "Solver", "nl_table_card"): 3,
+                      ("count", "Prover", "fold_steps"): 1}
+    run = loop.Run([{"role": "prove", "stages": stages},
+                    {"role": "prove", "stages": {}},
+                    {"role": "verify", "stages": stages}], {})
+    assert run.count_mean("prove", "Solver", "nl_table_card") == 1.5
+    assert run.count_mean("prove", "Solver", "nl_table_host") is None
+    assert run.stage_mean("prove", "Solver", "nl_table") == \
+        pytest.approx(0.02)
+    assert run.stage_mean("prove", "Solver", "nl_table_card") is None
